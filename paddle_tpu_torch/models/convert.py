@@ -1,0 +1,41 @@
+"""Carry weights into the port by name.
+
+The port keeps paddle_tpu's parameter names and its ``[in, out]`` linear
+layout, so a paddle_tpu ``state_dict()`` turned into numpy arrays loads
+as a name-checked copy: nothing is transposed or renamed.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+__all__ = ["state_dict_from_numpy"]
+
+
+def state_dict_from_numpy(model: nn.Module,
+                          arrays: Mapping[str, np.ndarray]) -> nn.Module:
+    """Copy ``arrays`` ({name: ndarray}) into ``model``'s state_dict
+    entries, cast to each entry's dtype, on its device. Raises
+    ``KeyError`` on missing or unexpected names and ``ValueError`` on a
+    shape mismatch; nothing is copied unless every entry matches."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(arrays))
+    unexpected = sorted(set(arrays) - set(own))
+    if missing or unexpected:
+        raise KeyError(f"state_dict mismatch: missing {missing}, "
+                       f"unexpected {unexpected}")
+    bad = [f"{k}: {tuple(np.shape(arrays[k]))} vs {tuple(t.shape)}"
+           for k, t in own.items()
+           if tuple(np.shape(arrays[k])) != tuple(t.shape)]
+    if bad:
+        raise ValueError("state_dict shape mismatch: " + "; ".join(bad))
+    with torch.no_grad():
+        for k, t in own.items():
+            a = np.ascontiguousarray(arrays[k])
+            if not a.flags.writeable:     # torch wraps only writable arrays
+                a = a.copy()
+            t.copy_(torch.from_numpy(a))
+    return model

@@ -1,0 +1,174 @@
+"""Build and bind the hand-written CUDA kernels (counterpart of
+``paddle_tpu/ops/pallas/common.py``).
+
+Each ``csrc/<name>.cu`` is compiled on its own, at first use, by
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+
+and loaded with ``ctypes``. The sources export plain C functions: every
+pointer and the CUDA stream cross as ``ctypes.c_void_p`` (a bare Python
+int would be cut to 32 bits), and each launch returns the
+``cudaGetLastError()`` code, which ``check`` turns into an exception.
+No PyTorch header is compiled, so a build takes seconds, not minutes.
+
+The library name carries a hash of the sources, so an edited kernel is
+never served from a stale build. Nothing happens at import time: the CPU
+path never needs ``nvcc``. ``build_all`` starts one ``nvcc`` per source
+at once, for callers that want every kernel ready up front.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List, Sequence, Tuple
+
+__all__ = ["CSRC_DIR", "BUILD_DIR", "KernelBuildError", "KernelLaunchError",
+           "sources", "nvcc_path", "nvcc_command", "library_path", "load",
+           "build_all", "check"]
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+# <repo>/build/kernels (listed in .gitignore)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# C signature of every exported entry point, per source
+_SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
+    "rms_norm": {
+        # (x, w or NULL, y, inv, rows, n, eps, x_dtype, w_dtype, stream)
+        "rms_norm_fwd": ([ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                         ctypes.c_int),
+        "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or refused a kernel source."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error."""
+
+
+def sources() -> List[str]:
+    """Names of the kernel sources (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH, else the
+    toolkit's default install location."""
+    home = os.environ.get("CUDA_HOME")
+    if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise KernelBuildError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA "
+        "kernels are built from source at first use")
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256()
+    h.update(" ".join(NVCC_FLAGS).encode())
+    for p in [CSRC_DIR / f"{name}.cu"] + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
+
+
+def nvcc_command(name: str, out: Path) -> List[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out),
+            str(CSRC_DIR / f"{name}.cu")]
+
+
+def _start(name: str):
+    """Start ``nvcc`` for ``name`` unless its library exists; returns
+    (final path, temp path, process) or None when already built."""
+    lib = library_path(name)
+    if lib.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.Popen(nvcc_command(name, tmp), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return lib, tmp, proc
+
+
+def _finish(name: str, started) -> None:
+    lib, tmp, proc = started
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n"
+            f"{out}")
+    os.replace(tmp, lib)      # atomic: a concurrent loader sees all or none
+
+
+def _bind(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, (argtypes, restype) in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    return lib
+
+
+def build_all(names: Sequence[str] = ()) -> List[str]:
+    """Build (in parallel) and bind every named kernel source, default
+    all of them. Returns the names that had to be compiled."""
+    names = list(names) or sources()
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        started = {n: _start(n) for n in todo}
+        try:
+            for n, s in started.items():
+                if s is not None:
+                    _finish(n, s)
+        finally:
+            for s in started.values():
+                if s is not None and s[2].poll() is None:
+                    s[2].kill()
+                    s[2].wait()
+        for n in todo:
+            _libs[n] = _bind(n)
+    return [n for n, s in started.items() if s is not None]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library for ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all([name])
+        lib = _libs[name]
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise ``KernelLaunchError`` for a non-zero CUDA error code."""
+    if rc != 0:
+        msg = lib.ptk_error_string(rc).decode(errors="replace")
+        raise KernelLaunchError(f"{what}: CUDA error {rc} ({msg})")

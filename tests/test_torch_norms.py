@@ -1,0 +1,146 @@
+"""PyTorch port: RMSNorm (paddle_tpu_torch/ops/kernels/norms.py) against
+paddle_tpu's Pallas kernel (interpret mode) and its XLA reference.
+
+On the CPU the port's ``rms_norm`` runs its plain version; the CUDA
+kernel (csrc/rms_norm.cu) is held against that plain version on the
+card by chip_smoke.py. Tolerance: fp32 at rtol=atol=1e-5, the tolerance
+paddle_tpu's own tests/test_pallas_norms.py uses for the kernel against
+XLA; bf16 at 1e-2, one bf16 ulp near 1.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.nn.functional.norm import _rms_norm_xla
+from paddle_tpu.ops.pallas.norms import rms_norm_pallas
+from paddle_tpu_torch.nn import RMSNorm
+from paddle_tpu_torch.nn import functional as TF
+from paddle_tpu_torch.ops.kernels import _build, norms
+
+EPS = 1e-6
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _mk(shape, seed):
+    return np.random.RandomState(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+# (4,128), (2,7,256), (300,128): tests/test_pallas_norms.py; (13,256):
+# the padded-tail case of tests/test_kernel_hygiene_fixes.py
+@pytest.mark.parametrize("shape", [(4, 128), (2, 7, 256), (300, 128),
+                                   (13, 256)])
+def test_rms_norm_matches_pallas_and_xla(shape):
+    x = _mk(shape, 0)
+    w = _mk(shape[-1:], 1) + 1.0
+    got = TF.rms_norm(torch.from_numpy(x), torch.from_numpy(w), EPS).numpy()
+    pallas = np.asarray(rms_norm_pallas(jnp.asarray(x), jnp.asarray(w), EPS,
+                                        True))
+    xla = np.asarray(_rms_norm_xla(jnp.asarray(x), jnp.asarray(w), EPS))
+    np.testing.assert_allclose(got, pallas, **TOL)
+    np.testing.assert_allclose(got, xla, **TOL)
+
+
+@pytest.mark.parametrize("shape", [(4, 128), (3, 1000)])
+def test_rms_norm_without_weight_matches_xla(shape):
+    x = _mk(shape, 2)
+    got = TF.rms_norm(torch.from_numpy(x), None, EPS).numpy()
+    ref = np.asarray(_rms_norm_xla(jnp.asarray(x), None, EPS))
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+def test_rms_norm_inv_is_the_saved_statistic():
+    x = _mk((13, 256), 3)
+    y, inv = norms.rms_norm(torch.from_numpy(x), None, EPS)
+    ref = 1.0 / np.sqrt(np.mean(x.astype(np.float64) ** 2, axis=-1) + EPS)
+    assert inv.dtype == torch.float32 and tuple(inv.shape) == (13,)
+    np.testing.assert_allclose(inv.numpy(), ref, **TOL)
+    np.testing.assert_allclose(y.numpy(), x * ref[:, None], **TOL)
+
+
+def test_rms_norm_bf16_matches_xla():
+    x = _mk((8, 256), 4)
+    w = _mk((256,), 5) + 1.0
+    got = TF.rms_norm(torch.from_numpy(x).bfloat16(),
+                      torch.from_numpy(w).bfloat16(), EPS)
+    assert got.dtype == torch.bfloat16
+    ref = _rms_norm_xla(jnp.asarray(x, jnp.bfloat16),
+                        jnp.asarray(w, jnp.bfloat16), EPS)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_rms_norm_layer_matches_jax_layer():
+    from paddle_tpu import nn as pnn
+    from paddle_tpu import to_tensor
+    from paddle_tpu.core import flags as _flags
+    x = _mk((4, 128), 6)
+    w = _mk((128,), 7) + 1.0
+    prev = _flags.get_flag("pallas_force_interpret")
+    _flags.set_flags({"pallas_force_interpret": True})
+    try:
+        ref_layer = pnn.RMSNorm(128, 1e-5)
+        ref_layer.weight._data = jnp.asarray(w)
+        ref = ref_layer(to_tensor(x)).numpy()
+    finally:
+        _flags.set_flags({"pallas_force_interpret": prev})
+    layer = RMSNorm(128, 1e-5, device="cpu")
+    with torch.no_grad():
+        layer.weight.copy_(torch.from_numpy(w))
+    got = layer(torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+def test_cpu_call_never_reaches_the_kernel(monkeypatch):
+    """A CPU tensor takes the plain version: no build, no launch, no
+    count."""
+    def boom(*a, **k):
+        raise AssertionError("CUDA branch reached for a CPU tensor")
+    monkeypatch.setattr(_build, "load", boom)
+    monkeypatch.setattr(norms, "_launch", boom)
+    before = norms.rms_norm.launches
+    x = torch.from_numpy(_mk((4, 128), 8))
+    norms.rms_norm(x, torch.ones(128), EPS)
+    TF.rms_norm(x, None, EPS)
+    RMSNorm(128, device="cpu")(x)
+    assert norms.rms_norm.launches == before
+
+
+def test_kernel_wrapper_validates_before_building(monkeypatch):
+    """The wrapper's checks (dtype, contiguity, weight shape/dtype) raise
+    before any build or launch is attempted."""
+    def boom(*a, **k):
+        raise AssertionError("reached the build")
+    monkeypatch.setattr(_build, "load", boom)
+    x = torch.zeros(4, 128)
+    with pytest.raises(TypeError):
+        norms._launch(x.half(), None, EPS)
+    with pytest.raises(ValueError):
+        norms._launch(torch.zeros(128, 4).t(), None, EPS)
+    with pytest.raises(ValueError):
+        norms._launch(x, torch.ones(64), EPS)
+    with pytest.raises(TypeError):
+        norms._launch(x, torch.ones(128, dtype=torch.float64), EPS)
+
+
+def test_build_command_targets_sm90a(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    assert "rms_norm" in _build.sources()
+    cmd = _build.nvcc_command("rms_norm", tmp_path / "lib.so")
+    assert cmd[:3] == ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a"]
+    for flag in ("-O3", "-shared", "-fPIC", "-std=c++17"):
+        assert flag in cmd
+    assert cmd[-1].endswith("csrc/rms_norm.cu")
+    lib = _build.library_path("rms_norm")
+    assert lib.parent == _build.BUILD_DIR
+    assert lib.name.startswith("librms_norm-") and lib.suffix == ".so"
+
+
+def test_missing_nvcc_raises(monkeypatch):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    with pytest.raises(_build.KernelBuildError):
+        _build.nvcc_path()
