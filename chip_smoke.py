@@ -378,8 +378,8 @@ def phase_profile(model, prompts, out_dir, device="cuda"):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--out", default=os.path.join("chiprun_out",
-                                                  "chip_smoke"))
+    ap.add_argument("--out", default=os.path.join("build", "chip_smoke"),
+                    help="directory for the JSON report and the profile")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a short second round of requests")
     args = ap.parse_args(argv)
