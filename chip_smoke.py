@@ -1,6 +1,7 @@
 """On-card smoke test of the PyTorch/CUDA port (paddle_tpu_torch).
 
-    python3 chip_smoke.py [--seed N] [--out DIR]
+    python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
+                          [--phases kernels,serve,train]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 Phases, each fatal on failure:
@@ -10,8 +11,11 @@ Phases, each fatal on failure:
 2. build: every kernel under ``paddle_tpu_torch/ops/kernels/csrc`` with
    nvcc for sm_90a (one nvcc per source, in parallel), timed.
 3. kernels: each kernel against its plain PyTorch version on the card
-   at the main path's shapes, then timed beside its bound, its plain
-   version and the one PyTorch call computing the same function.
+   at the main paths' shapes (RMSNorm; LayerNorm; flash-attention
+   forward, dq and dkv at GPT-2's and Llama-2 7B's training shapes, GQA,
+   padded lengths and dropout, whose keep-mask must match exactly), then
+   timed beside its bound, its plain version and the PyTorch call
+   computing the same function.
 4. serve: Llama-2 7B at full width, fp32, random weights from ``--seed``,
    behind the continuous-batching ``DecodeServer``: 8 mixed-length
    prompts from client threads, 32 greedy tokens each. Every RMSNorm of
@@ -21,6 +25,21 @@ Phases, each fatal on failure:
 5. profile (only with ``--profile``): a second round whose batch-8
    decode steps run under ``torch.profiler``: device time by kernel
    class and the device's idle share, written to ``--out``.
+6. train: ``create_train_step`` trains ``GPTForCausalLM``.
+   a. oracle: GPT-2 small's widths with 2 layers, fp32, one step of
+      batch 1 x 1024 on the card (kernels) and on the CPU (plain
+      versions) from the same weights: loss within rtol 1e-4, every
+      gradient within 1e-3 of its largest magnitude (the key
+      projection's bias, whose gradient is zero in exact arithmetic,
+      within 1e-6 of the model's largest gradient magnitude).
+   b. full: bench.py's GPT-2 small config (12 layers, vocab 50304, seq
+      1024, batch 8, dropout 0, bf16 parameters, fp32 AdamW moments,
+      AdamW(3e-4, weight decay 0.01)), 20 steps on one batch: the loss
+      must fall by at least 0.5 and every step must launch exactly 12
+      flash forwards, 12 dq, 12 dkv and 25 LayerNorm kernels. Reports
+      tokens/s, ms/step, peak memory and MFU (bench.py's FLOP count over
+      989 TFLOP/s). With ``--profile``, two more steps run under
+      ``torch.profiler`` (one warm-up, one recorded).
 
 The line before the last holds the kernel table as JSON; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -29,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -42,6 +62,7 @@ import torch
 # (non-tensor-core) flop/s; a card set below 700 W runs slower
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12     # dense tensor-core peak
 
 PROMPT_LENS = (17, 40, 64, 100, 128, 200, 256, 300)
 NEW_TOKENS = 32
@@ -175,6 +196,227 @@ def phase_kernels(norms, gen):
                 f"{row['bound_ms'] * 1e3:.3f} us by {row['bound_by']} "
                 f"({row['bytes']} B)")
     return worst, timings
+
+
+def check_close(name, got, ref, tol, quiet=False):
+    """max |got - ref| over finite entries, which must be at most
+    ``tol * max(1, max |ref|)``; non-finite entries must agree exactly."""
+    got, ref = got.float(), ref.float()
+    fin = torch.isfinite(ref)
+    if not torch.equal(torch.isfinite(got), fin) or not torch.equal(
+            got[~fin], ref[~fin]):
+        raise AssertionError(f"{name}: non-finite entries differ")
+    err = float((got[fin] - ref[fin]).abs().max()) if fin.any() else 0.0
+    scale = max(1.0, float(ref[fin].abs().max()) if fin.any() else 0.0)
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max|kernel - plain| {err:.3e} > "
+                             f"{tol:g} x {scale:.3g}")
+    if not quiet:
+        log(f"    {name}: max|kernel-plain| {err:.3e} (tol {tol:g} x "
+            f"{scale:.3g}) ok")
+    return err
+
+
+def ln_bound(rows: int, n: int, dtype: torch.dtype):
+    """(bound ms, bound_by) of a LayerNorm forward with w and b: x read,
+    w and b read, y written, mu and rstd written; ~8 fp32 flops per
+    element."""
+    es = torch.finfo(dtype).bits // 8
+    nbytes = 2 * rows * n * es + 2 * n * es + 2 * rows * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 8 * rows * n / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_layer_norm(norms, gen):
+    """LayerNorm kernel vs layer_norm_plain at GPT-2's rows (8 x 1024
+    tokens, and a batch of 8) and width 768, fp32 and bf16; then timed at
+    the training shape. Tolerance: y at 1e-5 (fp32) / 1e-2 (bf16, one ulp
+    near 1) of max(1, max|y|); mu, rstd at 1e-5."""
+    dev = torch.device("cuda")
+    worst = {}
+    for rows in (8192, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(rows, 768, device=dev, generator=gen) * 2
+                 + 0.5).to(dtype)
+            w = (torch.randn(768, device=dev, generator=gen) + 1).to(dtype)
+            b = torch.randn(768, device=dev, generator=gen).to(dtype)
+            y, mu, rstd = norms.layer_norm(x, w, b, 1e-5)
+            yp, mup, rstdp = norms.layer_norm_plain(x, w, b, 1e-5)
+            torch.cuda.synchronize()
+            tag = f"layer_norm [{rows},768] {str(dtype)[6:]}"
+            worst[(rows, dtype)] = check_close(
+                tag + " y", y, yp, 1e-5 if dtype == torch.float32 else 1e-2)
+            check_close(tag + " mu", mu, mup, 1e-5, quiet=True)
+            check_close(tag + " rstd", rstd, rstdp, 1e-5, quiet=True)
+    x = torch.randn(8192, 768, device=dev, generator=gen).to(torch.bfloat16)
+    w = (torch.randn(768, device=dev, generator=gen) + 1).to(torch.bfloat16)
+    b = torch.randn(768, device=dev, generator=gen).to(torch.bfloat16)
+    row = {
+        "ms": time_graph_ms(lambda: norms.layer_norm(x, w, b, 1e-5)),
+        "plain_ms": time_graph_ms(
+            lambda: norms.layer_norm_plain(x, w, b, 1e-5)),
+        "library_ms": time_graph_ms(
+            lambda: torch.nn.functional.layer_norm(x, (768,), w, b, 1e-5)),
+        "eager_ms": time_eager_ms(lambda: norms.layer_norm(x, w, b, 1e-5)),
+        "max_abs_err": worst[(8192, torch.bfloat16)],
+    }
+    row["bound_ms"], row["bound_by"] = ln_bound(8192, 768, torch.bfloat16)
+    log(f"  time layer_norm [8192,768] bf16: kernel {row['ms'] * 1e3:.2f} us"
+        f" (eager call {row['eager_ms'] * 1e3:.2f} us), plain "
+        f"{row['plain_ms'] * 1e3:.2f} us, F.layer_norm "
+        f"{row['library_ms'] * 1e3:.2f} us; bound "
+        f"{row['bound_ms'] * 1e3:.2f} us by {row['bound_by']}")
+    return row
+
+
+def _visible_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs the causal diagonal j <= i + sk - sq leaves."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
+
+
+FLASH_FLOPS_PER_PAIR = {"fwd": 4, "dq": 6, "dkv": 8}   # x head_dim
+
+
+def flash_bound(kind, b, sq, sk, hq, hk, d, dtype, causal):
+    """(bound ms, bound_by): flops of the products over the visible pairs
+    at the dtype's peak (bf16 tensor cores; fp32 CUDA cores), or the
+    bytes of each operand read once and each result written once."""
+    es = torch.finfo(dtype).bits // 8
+    flops = FLASH_FLOPS_PER_PAIR[kind] * d * b * hq * _visible_pairs(
+        sq, sk, causal)
+    qb, kb, stat = b * sq * hq * d * es, b * sk * hk * d * es, b * hq * sq * 4
+    nbytes = {"fwd": 2 * qb + 2 * kb + stat,
+              "dq": 3 * qb + 2 * kb + 2 * stat,
+              "dkv": 2 * qb + 4 * kb + 2 * stat}[kind]
+    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+# (name, B, Sq, Sk, Hq, Hk, D, dtype, causal, dropout rate)
+FLASH_CASES = [
+    ("gpt2-train", 8, 1024, 1024, 12, 12, 64, torch.bfloat16, True, 0.0),
+    ("llama7b", 1, 2048, 2048, 32, 32, 128, torch.bfloat16, True, 0.0),
+    ("gqa-32/8", 1, 1024, 1024, 32, 8, 128, torch.bfloat16, True, 0.0),
+    ("padded-200/333", 2, 200, 333, 4, 4, 64, torch.float32, True, 0.0),
+    ("padded-non-causal", 2, 200, 333, 4, 2, 96, torch.float32, False, 0.0),
+    ("dropout-0.1", 2, 512, 512, 4, 4, 64, torch.float32, True, 0.1),
+    ("dropout-0.1-bf16", 2, 512, 512, 4, 2, 64, torch.bfloat16, True, 0.1),
+]
+# of max(1, max|plain|): fp32 sums in another order; bf16 also rounds p
+# and ds to bf16 against another running max than the plain version
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype):
+    dev = torch.device("cuda")
+    mk = lambda s, h: torch.randn(b, s, h, d, device=dev,  # noqa: E731
+                                  generator=gen).to(dtype)
+    return mk(sq, hq), mk(sk, hk), mk(sk, hk), mk(sq, hq)
+
+
+def phase_flash(fa, gen):
+    """Flash forward, dq and dkv kernels vs their plain versions on every
+    case of FLASH_CASES, the dropout keep-mask read back exactly, then the
+    three kernels timed at GPT-2's training shape."""
+    errs = {}
+    for name, b, sq, sk, hq, hk, d, dtype, causal, rate in FLASH_CASES:
+        q, k, v, do = _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype)
+        seed = torch.tensor([987654321], dtype=torch.int32, device="cuda")
+        scale = 1.0 / math.sqrt(d)
+        tol = FLASH_TOL[dtype]
+        log(f"  flash {name}: B{b} Sq{sq} Sk{sk} H{hq}/{hk} D{d} "
+            f"{str(dtype)[6:]} causal={causal} dropout={rate}")
+        out, lse = fa.flash_fwd(q, k, v, causal, scale, rate, seed)
+        outp, lsep = fa.flash_fwd_plain(q, k, v, causal, scale, rate, seed)
+        e = {"fwd": check_close("out", out, outp, tol)}
+        check_close("lse", lse, lsep, 1e-4)
+        delta = (do.float() * outp.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        dq = fa.flash_dq(q, k, v, do, lsep, delta, causal, scale, rate, seed)
+        e["dq"] = check_close("dq", dq, fa.flash_dq_plain(
+            q, k, v, do, lsep, delta, causal, scale, rate, seed), tol)
+        dk, dv = fa.flash_dkv(q, k, v, do, lsep, delta, causal, scale, rate,
+                              seed)
+        dkp, dvp = fa.flash_dkv_plain(q, k, v, do, lsep, delta, causal,
+                                      scale, rate, seed)
+        e["dkv"] = max(check_close("dk", dk, dkp, tol),
+                       check_close("dv", dv, dvp, tol))
+        errs[name] = e
+        del q, k, v, do, out, outp, dq, dk, dv, dkp, dvp
+        torch.cuda.empty_cache()
+
+    # the keep-mask, read back exactly: with v = identity (Sk = D) each
+    # output row is p_v / l, zero exactly where the mask drops a key
+    b, s, h, d, rate = 2, 64, 3, 64, 0.1
+    q = torch.randn(b, s, h, d, device="cuda", generator=gen) * 0.3
+    k = torch.randn(b, s, h, d, device="cuda", generator=gen) * 0.3
+    v = torch.eye(s, device="cuda")[None, :, None, :].expand(
+        b, s, h, d).contiguous()
+    seed = torch.tensor([-424242], dtype=torch.int32, device="cuda")
+    out, _ = fa.flash_fwd(q, k, v, False, 1.0 / math.sqrt(d), rate, seed)
+    got = (out != 0).permute(0, 2, 1, 3).reshape(b * h, s, s)
+    keep = fa.dropout_keep_mask(seed, b * h, s, s, rate)
+    if not torch.equal(got, keep):
+        raise AssertionError(f"dropout keep-mask differs at "
+                             f"{int((got != keep).sum())} of {keep.numel()}")
+    log(f"  flash dropout keep-mask: identical at all {keep.numel()} "
+        f"positions ({1 - keep.float().mean().item():.4f} dropped, rate "
+        f"{rate})")
+
+    name, b, sq, sk, hq, hk, d, dtype, causal, _ = FLASH_CASES[0]
+    q, k, v, do = _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype)
+    scale = 1.0 / math.sqrt(d)
+    _, lse = fa.flash_fwd_plain(q, k, v, causal, scale)
+    out, _ = fa.flash_fwd(q, k, v, causal, scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    # PyTorch's attention on [B, H, S, D]; at Sq = Sk its top-left causal
+    # mask is the reference's diagonal
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib_fwd_bwd():
+        o = sdpa(qt, kt, vt, is_causal=True)
+        torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    calls = {
+        "fwd": (lambda: fa.flash_fwd(q, k, v, causal, scale),
+                lambda: fa.flash_fwd_plain(q, k, v, causal, scale),
+                lambda: sdpa(qt, kt, vt, is_causal=True)),
+        "dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal, scale),
+               lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, causal,
+                                         scale), lib_fwd_bwd),
+        "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal, scale),
+                lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, causal,
+                                           scale), lib_fwd_bwd),
+    }
+    # device time per call: 10 calls captured in a CUDA graph, replayed
+    # between CUDA events (the ctypes launch cost stays out, as PyTorch's
+    # own launch cost does for the library call)
+    lib_ms = {"fwd": time_graph_ms(calls["fwd"][2], reps=10, iters=5),
+              "bwd": time_graph_ms(lib_fwd_bwd, reps=10, iters=5)}
+    rows = {}
+    for kind, (kern, plain, _) in calls.items():
+        row = {"ms": time_graph_ms(kern, reps=10, iters=5),
+               "plain_ms": time_graph_ms(plain, reps=10, iters=2),
+               "library_ms": lib_ms["fwd" if kind == "fwd" else "bwd"],
+               "eager_ms": time_eager_ms(kern, iters=10),
+               "max_abs_err": errs[name][kind]}
+        row["bound_ms"], row["bound_by"] = flash_bound(
+            kind, b, sq, sk, hq, hk, d, dtype, causal)
+        rows[kind] = row
+        log(f"  time flash_{kind} {name} bf16: kernel {row['ms']:.3f} ms "
+            f"(eager call {row['eager_ms']:.3f} ms), plain "
+            f"{row['plain_ms']:.3f} ms, "
+            f"{'sdpa fwd' if kind == 'fwd' else 'sdpa fwd+bwd'} "
+            f"{row['library_ms']:.3f} ms; bound {row['bound_ms']:.4f} ms "
+            f"by {row['bound_by']}")
+    return rows, errs
 
 
 def phase_serve(cfg, seed, card, device="cuda"):
@@ -375,20 +617,255 @@ def phase_profile(model, prompts, out_dir, device="cuda"):
     return out
 
 
+TRAIN_STEPS = 20
+TRAIN_LR = 3e-4
+
+
+def _flash_counts():
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import norms
+    return {"flash_fwd": fa.flash_fwd.launches,
+            "flash_dq": fa.flash_dq.launches,
+            "flash_dkv": fa.flash_dkv.launches,
+            "layer_norm": norms.layer_norm.launches}
+
+
+def _reset_counts():
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import norms
+    fa.flash_fwd.launches = fa.flash_dq.launches = 0
+    fa.flash_dkv.launches = norms.layer_norm.launches = 0
+
+
+def _expected_counts(layers: int, steps: int) -> dict:
+    """Per step: one flash forward, dq and dkv per layer; two LayerNorms
+    per layer and the final one."""
+    return {"flash_fwd": layers * steps, "flash_dq": layers * steps,
+            "flash_dkv": layers * steps,
+            "layer_norm": (2 * layers + 1) * steps}
+
+
+def phase_train_oracle(seed):
+    """One train step of GPT-2 small's widths (2 layers, fp32, batch
+    1 x 1024) on the card through the kernels and on the CPU through the
+    plain versions, from the same weights and batch."""
+    from paddle_tpu_torch.core.random import make_generator
+    from paddle_tpu_torch.models import (GPTForCausalLM, create_train_step,
+                                         gpt2_small)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = gpt2_small()
+    cfg.num_layers, cfg.dropout = 2, 0.0
+    cpu = GPTForCausalLM(cfg, device="cpu",
+                         generator=make_generator(seed, "cpu"))
+    gpu = GPTForCausalLM(cfg, device="cuda",
+                         generator=make_generator(seed, "cuda"))
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (1, cfg.max_position_embeddings + 1))
+    x, y = ids[:, :-1], ids[:, 1:]
+    steps = {m: create_train_step(m, AdamW(TRAIN_LR, parameters=m.parameters(),
+                                           weight_decay=0.01))
+             for m in (cpu, gpu)}
+    _reset_counts()
+    loss_gpu = float(steps[gpu](x, y, TRAIN_LR))
+    counts = _flash_counts()
+    t0 = time.perf_counter()
+    loss_cpu = float(steps[cpu](x, y, TRAIN_LR))
+    log(f"  oracle: loss card {loss_gpu:.6f}, CPU plain {loss_cpu:.6f} "
+        f"({time.perf_counter() - t0:.1f} s on the CPU); launches {counts}")
+    if counts != _expected_counts(cfg.num_layers, 1):
+        raise AssertionError(f"oracle launches {counts}, expected "
+                             f"{_expected_counts(cfg.num_layers, 1)}")
+    if not abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu):
+        raise AssertionError("oracle loss differs beyond rtol 1e-4")
+    # every gradient within 1e-3 of its own max-abs. The key projection's
+    # bias has a zero gradient in exact arithmetic (it shifts each query
+    # row's scores by one constant, which the softmax cancels), so what
+    # both sides hold there is rounding noise: it is held instead to
+    # 1e-6 of the largest gradient magnitude of the model, on both sides.
+    gpu_params = dict(gpu.named_parameters())
+    top = max(float(p.grad.abs().max()) for p in cpu.parameters())
+    worst, vanishing = 0.0, {}
+    for n, p in cpu.named_parameters():
+        g_ref, g = p.grad, gpu_params[n].grad.cpu()
+        if n.endswith("self_attn.k_proj.bias"):
+            mag = max(float(g_ref.abs().max()), float(g.abs().max())) / top
+            vanishing[n] = mag
+            if not mag <= 1e-6:
+                raise AssertionError(f"oracle grad {n}: {mag:.3e} of the "
+                                     f"largest gradient, expected ~0")
+            continue
+        rel = float((g - g_ref).abs().max()) / max(float(g_ref.abs().max()),
+                                                   1e-30)
+        worst = max(worst, rel)
+        if not rel <= 1e-3:
+            raise AssertionError(f"oracle grad {n}: max diff {rel:.3e} of "
+                                 f"its max-abs > 1e-3")
+    log(f"  oracle: {len(gpu_params) - len(vanishing)} gradients agree, "
+        f"worst max diff {worst:.3e} of the tensor's max-abs (bound 1e-3); "
+        f"k_proj biases zero up to "
+        f"{max(vanishing.values()):.2e} of the largest gradient")
+    return {"loss_card": loss_gpu, "loss_cpu": loss_cpu,
+            "worst_grad_rel": worst, "k_proj_bias_grad_rel": vanishing}
+
+
+def _train_kernel_class(name: str) -> str:
+    n = name.lower()
+    for key, cls in (("fwd_kernel<", "flash fwd kernel"),
+                     ("dq_kernel", "flash dq kernel"),
+                     ("dkv_kernel", "flash dkv kernel"),
+                     ("layer_norm_fwd_kernel", "layer_norm kernel")):
+        if key in n:
+            return cls
+    if any(k in n for k in ("gemm", "gemv", "splitk", "cutlass", "sm90_xmma",
+                            "nvjet")):
+        return "matmul (cuBLAS/CUTLASS)"
+    if "softmax" in n or "logsumexp" in n:
+        return "softmax / logsumexp"
+    if any(k in n for k in ("reduce", "sum")):
+        return "reductions"
+    if any(k in n for k in ("gather", "index", "scatter", "embedding")):
+        return "gather/scatter (embedding, CE)"
+    return "elementwise/copy"
+
+
+def phase_train_full(seed, card, profile, out_dir):
+    """bench.py's GPT-2 small training config, 20 steps on one batch."""
+    from paddle_tpu_torch.core.random import make_generator
+    from paddle_tpu_torch.models import (GPTForCausalLM, create_train_step,
+                                         gpt2_small, write_back)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = gpt2_small()
+    cfg.dropout = 0.0
+    batch, seq = 8, cfg.max_position_embeddings
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=make_generator(seed, "cuda"))
+    # bf16 parameters, fp32 moments (bench.py casts its params the same way)
+    write_back(model, {k: v.detach().to(torch.bfloat16)
+                       for k, v in model.named_parameters()})
+    nparams = sum(p.numel() for p in model.parameters())
+    opt = AdamW(TRAIN_LR, parameters=model.parameters(), weight_decay=0.01)
+    step = create_train_step(model, opt)
+    rng = np.random.RandomState(seed)
+    ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq + 1)),
+                          device="cuda")
+    x, y = ids[:, :-1], ids[:, 1:]
+    _reset_counts()                                  # counted run starts
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        losses.append(step(x, y, TRAIN_LR))
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _flash_counts()                         # counted run ends
+    losses = [float(v) for v in losses]
+    peak = torch.cuda.max_memory_allocated()
+    ms_step = (t2 - t1) / (TRAIN_STEPS - 1) * 1e3
+    tokens_s = batch * seq / (ms_step / 1e3)
+    h, L, inter, V = (cfg.hidden_size, cfg.num_layers,
+                      cfg.intermediate_size, cfg.vocab_size)
+    flops_per_tok = 6 * (L * (4 * h * h + 2 * h * inter) + V * h) \
+        + 3 * L * seq * h                            # bench.py's count
+    res = {"params": nparams, "batch": batch, "seq": seq,
+           "losses": losses, "first_step_s": t1 - t0, "ms_per_step": ms_step,
+           "tokens_per_s": tokens_s,
+           "mfu": tokens_s * flops_per_tok / BF16_FLOPS,
+           "peak_mem_bytes": peak, "launches": counts, "card": card}
+    log(f"  full: {nparams} params bf16, batch {batch} x {seq}, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps")
+    log(f"  full: {ms_step:.2f} ms/step, {tokens_s:.0f} tokens/s, MFU "
+        f"{res['mfu']:.4f} (vs 989 TFLOP/s), peak memory "
+        f"{peak / 2**30:.2f} GiB, first step {t1 - t0:.2f} s [{card}]")
+    log(f"  full: launches {counts}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[0] - losses[-1] >= 0.5:
+        raise AssertionError(f"loss fell by {losses[0] - losses[-1]:.4f} "
+                             f"< 0.5 over {TRAIN_STEPS} steps")
+    if counts != _expected_counts(L, TRAIN_STEPS):
+        raise AssertionError(f"launches {counts}, expected "
+                             f"{_expected_counts(L, TRAIN_STEPS)}")
+    if profile:
+        res["profile"] = phase_train_profile(step, x, y, out_dir)
+    return res
+
+
+def phase_train_profile(step, x, y, out_dir):
+    """One train step under torch.profiler (after one warm-up step):
+    device time by kernel class and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    sched = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched) as prof:
+        step(x, y, TRAIN_LR)
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        step(x, y, TRAIN_LR)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    totals = {}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        # ranges the profiler draws on the device timeline (the step, the
+        # optimizer's step) span kernels: they are not device work
+        if (getattr(e, "is_user_annotation", False)
+                or e.key.startswith("ProfilerStep")
+                or e.key.startswith("Optimizer.")):
+            continue
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0)
+        if dt:
+            totals[e.key] = totals.get(e.key, 0.0) + dt
+    busy = sum(totals.values())
+    classes = {}
+    for k, v in totals.items():
+        c = _train_kernel_class(k)
+        classes[c] = classes.get(c, 0.0) + v
+    out = {"wall_us": wall_us, "busy_us": busy,
+           "idle_share": 1.0 - busy / wall_us if wall_us else None,
+           "classes_us": dict(sorted(classes.items(), key=lambda kv: -kv[1])),
+           "top_kernels_us": sorted(totals.items(),
+                                    key=lambda kv: -kv[1])[:15]}
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "train_profile.txt"), "w") as f:
+        f.write(json.dumps(out, indent=1) + "\n")
+        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                          row_limit=40) + "\n")
+    log(f"  profile: one step {wall_us / 1e3:.1f} ms wall, device busy "
+        f"{busy / 1e3:.1f} ms (idle share {out['idle_share']:.3f})")
+    for c, v in out["classes_us"].items():
+        log(f"    {v / 1e3:10.2f} ms  {c}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=os.path.join("build", "chip_smoke"),
-                    help="directory for the JSON report and the profile")
+                    help="directory for the JSON report and the profiles")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile a short second round of requests")
+                    help="also profile decode steps and one train step")
+    ap.add_argument("--phases", default="kernels,serve,train",
+                    help="comma-separated subset of kernels,serve,train "
+                         "(default: all)")
     args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test needs the card",
               file=sys.stderr)
         return 2
     # the port itself: a checkout without it fails here
     from paddle_tpu_torch.ops.kernels import _build, norms
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     card = card_line()
     log(card)
@@ -403,38 +880,67 @@ def main(argv=None) -> int:
     log(f"build: {built or 'nothing new'} in "
         f"{time.perf_counter() - t0:.1f} s -> {_build.BUILD_DIR}")
 
-    log("kernels:")
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    worst, timings = phase_kernels(norms, gen)
+    report = {"card": card}
+    rows = {}
+    if "kernels" in phases:
+        log("kernels:")
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        worst, timings = phase_kernels(norms, gen)
+        report["timings"] = timings
+        main_t = next(t for t in timings
+                      if t["rows"] == 8 and t["dtype"] == "float32")
+        rows["rms_norm"] = dict(main_t, max_abs_err=worst)
+        rows["layer_norm"] = phase_layer_norm(norms, gen)
+        flash_rows, report["flash_errors"] = phase_flash(fa, gen)
+        for kind, row in flash_rows.items():
+            rows["flash_" + kind] = row
+        torch.cuda.empty_cache()
 
-    log("serve:")
-    from paddle_tpu_torch.models import llama_7b
-    model, prompts, res, launches = phase_serve(llama_7b(), args.seed, card)
+    launches = {}
+    if "serve" in phases:
+        log("serve:")
+        from paddle_tpu_torch.models import llama_7b
+        model, prompts, report["serve"], launches["rms_norm"] = phase_serve(
+            llama_7b(), args.seed, card)
+        if args.profile:
+            log("profile:")
+            report["profile"] = phase_profile(model, prompts, args.out)
+        del model
+        torch.cuda.empty_cache()
 
-    top = None
-    if args.profile:
-        log("profile:")
-        top = phase_profile(model, prompts, args.out)
+    if "train" in phases:
+        log("train:")
+        report["train_oracle"] = phase_train_oracle(args.seed)
+        torch.cuda.empty_cache()
+        report["train"] = phase_train_full(args.seed, card, args.profile,
+                                           args.out)
+        launches.update(report["train"]["launches"])
 
-    main_t = next(t for t in timings
-                  if t["rows"] == 8 and t["dtype"] == "float32")
-    kernels = [{
-        "name": "rms_norm",
-        "route": "cuda",
-        "source": "paddle_tpu_torch/ops/kernels/csrc/rms_norm.cu",
-        "replaces": "paddle_tpu/ops/pallas/norms.py:66",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": main_t["ms"],
-        "plain_ms": main_t["plain_ms"],
-        "bound_ms": main_t["bound_ms"],
-        "bound_by": main_t["bound_by"],
-        "library_ms": main_t["library_ms"],
-    }]
+    sources = {
+        "rms_norm": ("rms_norm.cu", "paddle_tpu/ops/pallas/norms.py:66"),
+        "layer_norm": ("layer_norm.cu", "paddle_tpu/ops/pallas/norms.py:162"),
+        "flash_fwd": ("flash_attention.cu",
+                      "paddle_tpu/ops/pallas/flash_attention.py:158"),
+        "flash_dq": ("flash_attention.cu",
+                     "paddle_tpu/ops/pallas/flash_attention.py:383"),
+        "flash_dkv": ("flash_attention.cu",
+                      "paddle_tpu/ops/pallas/flash_attention.py:455"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        row = rows.get(name, {})
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/ops/kernels/csrc/{src}",
+            "replaces": replaces,
+            "launches": launches.get(name),
+            **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}})
+    report["kernels"] = kernels
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "timings": timings,
-                   "serve": res, "profile": top}, f, indent=1)
+        json.dump(report, f, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

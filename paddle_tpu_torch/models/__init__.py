@@ -1,6 +1,10 @@
 """Model families (counterpart of paddle_tpu/models)."""
 from .convert import state_dict_from_numpy
+from .gpt import GPTConfig, GPTForCausalLM, GPTModel, gpt2_small, gpt2_tiny
 from .llama import LlamaConfig, LlamaForCausalLM, llama_7b, llama_tiny
+from .trainer import create_train_step, write_back
 
-__all__ = ["LlamaConfig", "LlamaForCausalLM", "llama_7b", "llama_tiny",
+__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel", "gpt2_small",
+           "gpt2_tiny", "LlamaConfig", "LlamaForCausalLM", "llama_7b",
+           "llama_tiny", "create_train_step", "write_back",
            "state_dict_from_numpy"]

@@ -2,7 +2,8 @@
 
 The port keeps paddle_tpu's parameter names and its ``[in, out]`` linear
 layout, so a paddle_tpu ``state_dict()`` turned into numpy arrays loads
-as a name-checked copy: nothing is transposed or renamed.
+as a name-checked copy: nothing is transposed or renamed. A tied weight
+has one entry: GPT's LM head reads ``gpt.wte.weight``, as in paddle_tpu.
 """
 from __future__ import annotations
 

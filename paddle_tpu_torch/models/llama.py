@@ -12,10 +12,10 @@ Two paths:
   (input, post-attention, final) are the hand-written CUDA kernel on the
   card; attention is the plain, GQA-aware, length-masked
   ``decode_attention``.
-- ``LlamaForCausalLM.forward``: the full-context path. In paddle_tpu it
-  reaches the flash-attention kernel, which belongs to a later slice of
-  the port, so here it runs on CPU tensors only, through a plain causal
-  attention, and raises on CUDA tensors.
+- ``LlamaForCausalLM.forward``: the full-context path, differentiable.
+  Attention is ``F.scaled_dot_product_attention`` with the causal mask:
+  the hand-written flash-attention kernels on the card (GQA-native),
+  their plain versions on the CPU; the RMSNorms are the RMSNorm kernel.
 """
 from __future__ import annotations
 
@@ -85,13 +85,6 @@ def apply_rotary_pos_emb(q, k, cos, sin):
     return apply_rope_at(q, k, cos, sin, zeros)
 
 
-def _causal_attention(q, k, v):
-    """Plain causal attention [B, S, H, D] with the GQA head repeat: the
-    CPU stand-in for the flash-attention kernel of a later slice."""
-    zeros = torch.zeros(q.shape[0], dtype=torch.long, device=q.device)
-    return decode_attention(q, k, v, zeros)
-
-
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, **kw):
         super().__init__()
@@ -112,7 +105,7 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(h).reshape(b, s, cfg.num_kv_heads, self.head_dim)
         cos, sin = cos_sin
         q, k = apply_rotary_pos_emb(q, k, cos, sin)
-        out = _causal_attention(q, k, v)
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
         return self.o_proj(out.reshape(b, s, cfg.num_heads * self.head_dim))
 
 
@@ -167,11 +160,6 @@ class LlamaModel(nn.Module):
         return self.rope_cos, self.rope_sin
 
     def forward(self, input_ids):
-        if self.embed_tokens.weight.device.type != "cpu":
-            raise NotImplementedError(
-                "the full-context Llama forward on the card needs the "
-                "flash-attention kernel, which a later slice of the port "
-                "brings; use decode_step, or CPU tensors")
         if input_ids.shape[1] > self.cfg.max_position_embeddings:
             raise ValueError(
                 f"sequence length {input_ids.shape[1]} exceeds "

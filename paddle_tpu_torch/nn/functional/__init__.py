@@ -1,6 +1,10 @@
 """Functional ops (counterpart of paddle_tpu/nn/functional)."""
-from .activation import silu
-from .common import embedding, linear
-from .norm import rms_norm
+from .activation import gelu, relu, silu
+from .common import dropout, embedding, linear
+from .flash_attention import flash_attention, scaled_dot_product_attention
+from .loss import cross_entropy
+from .norm import layer_norm, rms_norm
 
-__all__ = ["silu", "embedding", "linear", "rms_norm"]
+__all__ = ["gelu", "relu", "silu", "dropout", "embedding", "linear",
+           "flash_attention", "scaled_dot_product_attention",
+           "cross_entropy", "layer_norm", "rms_norm"]

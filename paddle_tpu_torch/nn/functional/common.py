@@ -5,7 +5,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["linear", "embedding"]
+__all__ = ["linear", "embedding", "dropout"]
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -19,3 +19,23 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 def embedding(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Rows of ``weight`` [vocab, dim] at the integer ids ``x``."""
     return weight[x.long()]
+
+
+def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Upscale-in-train dropout: each element is kept with probability
+    ``1 - p`` and scaled by ``1 / (1 - p)``. The mask is drawn from
+    ``generator``, which must lie on ``x``'s device; a draw with none
+    raises rather than touch a global stream."""
+    if not training or p == 0.0:
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout with p > 0 in training needs an explicit "
+                         "torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device)
+                       ).to(x.dtype)

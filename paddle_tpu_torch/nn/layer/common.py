@@ -15,7 +15,7 @@ from ...device import resolve_device
 from .. import functional as F
 from ..initializer import Constant, Initializer, XavierUniform
 
-__all__ = ["create_parameter", "Linear", "Embedding"]
+__all__ = ["create_parameter", "Linear", "Embedding", "Dropout"]
 
 
 def create_parameter(shape: Sequence[int], initializer: Initializer, *,
@@ -75,3 +75,21 @@ class Embedding(nn.Module):
 
     def extra_repr(self) -> str:
         return f"{self._num_embeddings}, {self._embedding_dim}"
+
+
+class Dropout(nn.Module):
+    """Upscale-in-train dropout whose masks come from ``generator`` (on
+    the device of the tensors it drops; required once ``p > 0`` is used
+    in training)."""
+
+    def __init__(self, p: float = 0.5, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p = p
+        self._generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.dropout(x, self.p, self.training, self._generator)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"

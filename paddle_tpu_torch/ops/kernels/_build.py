@@ -26,11 +26,14 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "KernelBuildError", "KernelLaunchError",
-           "sources", "nvcc_path", "nvcc_command", "library_path", "load",
-           "build_all", "check"]
+           "DTYPE_CODES", "sources", "nvcc_path", "nvcc_command",
+           "library_path", "load", "build_all", "check", "ptr", "stream",
+           "dispatch"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/kernels (listed in .gitignore)
@@ -50,7 +53,32 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
                          ctypes.c_int),
         "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "layer_norm": {
+        # (x, w or NULL, b or NULL, y, mu, rstd, rows, n, eps, x_dtype,
+        #  w_dtype, stream)
+        "layer_norm_fwd": ([ctypes.c_void_p] * 6
+                           + [ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p], ctypes.c_int),
+        "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
+    "flash_attention": {
+        # (tensors..., B, Sq, Sk, Hq, Hk, D, scale, causal, dropout_on,
+        #  threshold, keep_scale, seed or NULL, dtype, stream)
+        **{fn: ([ctypes.c_void_p] * n
+                + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_float, ctypes.c_void_p,
+                                        ctypes.c_int, ctypes.c_void_p],
+                ctypes.c_int)
+           for fn, n in (("flash_fwd", 5), ("flash_dq", 7),
+                         ("flash_dkv", 8))},
+        "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
+
+# dtype codes shared with csrc/common.cuh (ptk::DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -172,3 +200,27 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.ptk_error_string(rc).decode(errors="replace")
         raise KernelLaunchError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[ctypes.c_void_p]:
+    """A tensor's device address for a C entry (None stays NULL)."""
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    """The current CUDA stream of ``t``'s card, for a C entry."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def dispatch(plain, launch, x: torch.Tensor, *args):
+    """``plain(x, *args)`` for a CPU tensor; ``launch(x, *args)`` with
+    ``x``'s card current for a CUDA tensor. Nothing falls back from one
+    to the other; any other device raises."""
+    if x.device.type == "cpu":
+        return plain(x, *args)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.device.index == torch.cuda.current_device():
+        return launch(x, *args)
+    with torch.cuda.device(x.device):
+        return launch(x, *args)

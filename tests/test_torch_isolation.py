@@ -99,14 +99,17 @@ def test_chip_smoke_refuses_without_a_card():
 def test_entry_points_default_to_cuda():
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.core.random import make_generator
-    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.models import GPTForCausalLM, LlamaForCausalLM
     from paddle_tpu_torch.models.decode import init_contiguous_cache
-    from paddle_tpu_torch.nn.layer import Embedding, Linear, RMSNorm
+    from paddle_tpu_torch.nn.layer import (Embedding, LayerNorm, Linear,
+                                           MultiHeadAttention, RMSNorm,
+                                           TransformerEncoderLayer)
     from paddle_tpu_torch.serving.decode import DecodeServer, PagedKV
     from paddle_tpu_torch.serving.decode.kvcache import init_paged_cache
     assert resolve_device(None) == torch.device("cuda")
-    for fn in (make_generator, LlamaForCausalLM, init_contiguous_cache,
-               Embedding, Linear, RMSNorm, DecodeServer, PagedKV,
-               init_paged_cache):
+    for fn in (make_generator, LlamaForCausalLM, GPTForCausalLM,
+               init_contiguous_cache, Embedding, Linear, RMSNorm, LayerNorm,
+               MultiHeadAttention, TransformerEncoderLayer, DecodeServer,
+               PagedKV, init_paged_cache):
         p = inspect.signature(fn).parameters["device"]
         assert p.default is None, fn       # None resolves to cuda
