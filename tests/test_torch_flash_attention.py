@@ -9,9 +9,13 @@ the port's plain versions, which are what its CUDA kernels
 Tolerance 2e-5 in fp32, as tests/test_kernel_hygiene_fixes.py holds the
 Pallas kernels to XLA (tiles sum in another order); gradients at 1e-4
 (one more product of rounded values). The dropout keep-mask must equal
-``dropout_keep_mask`` bit for bit.
+``dropout_keep_mask`` bit for bit. One test holds chip_smoke.py's own
+entry-wise check to account: the kernel's rounding passes it, planted
+faults do not.
 """
+import importlib.util
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -185,6 +189,86 @@ def test_kernel_wrappers_validate_before_building(monkeypatch):
     with pytest.raises(ValueError):          # lse of the wrong shape
         tfa._dq_launch(q, k, v, do, torch.zeros(1, 4, 7), torch.zeros(
             1, 4, 8), True, 1.0, 0.0, None)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (only its CPU-safe helpers are used)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _online_softmax_fwd(q, k, v, scale, block=64, rescale=True):
+    """The forward kernel's order of work, causal, in torch: k tiles of
+    ``block`` keys, p rounded to v's dtype against the running max, the
+    accumulator rescaled by alpha = exp(m_old - m_new) (left out when
+    ``rescale`` is False: a planted fault)."""
+    b, s, h, _ = q.shape
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    sc = sc.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1),
+                        float("-inf"))
+    vt = v.float().permute(0, 2, 1, 3)
+    m = torch.full((b, h, s, 1), float("-inf"))
+    l = torch.zeros(b, h, s, 1)
+    acc = torch.zeros(b, h, s, q.shape[-1])
+    for k0 in range(0, s, block):
+        st = sc[..., k0:k0 + block]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        m_safe = torch.where(m_new == float("-inf"), 0.0, m_new)
+        alpha = torch.exp(m - m_safe)
+        p = torch.exp(st - m_safe)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = (acc * alpha if rescale else acc) + \
+            p.to(v.dtype).float() @ vt[:, :, k0:k0 + block]
+        m = m_new
+    return (acc / l).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def test_chip_check_passes_kernel_rounding_and_rejects_planted_faults():
+    """chip_smoke.py's entry-wise check at its bf16 flash tolerance: the
+    forward's online-softmax rounding passes against flash_fwd_plain,
+    while three faults of the kind a kernel could carry fail it: the
+    forward without the alpha rescale, dkv missing the last q tile, and
+    dq missing key tile 0 for the later half of the rows."""
+    cs = _chip_smoke()
+    rtol_fwd = cs.FLASH_RTOL["fwd"][torch.bfloat16]
+    rtol = cs.FLASH_RTOL["bwd"][torch.bfloat16]
+    b, s, h, d = 1, 512, 2, 64
+    rng = np.random.RandomState(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (b, s, h, d)).astype(np.float32)).bfloat16() for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = tfa.flash_fwd_plain(q, k, v, True, scale)
+    cs.check_close("out", _online_softmax_fwd(q, k, v, scale), out,
+                   rtol_fwd, quiet=True)
+    with pytest.raises(AssertionError):
+        cs.check_close("out", _online_softmax_fwd(q, k, v, scale,
+                                                  rescale=False),
+                       out, rtol_fwd, quiet=True)
+
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = tfa.flash_dkv_plain(q, k, v, do, lse, delta, True, scale)
+    do_cut, delta_cut = do.clone(), delta.clone()
+    do_cut[:, -64:] = 0                 # the last q tile's rows add nothing
+    delta_cut[..., -64:] = 0
+    dk_cut, dv_cut = tfa.flash_dkv_plain(q, k, v, do_cut, lse, delta_cut,
+                                         True, scale)
+    for got, ref in ((dk_cut, dk), (dv_cut, dv)):
+        with pytest.raises(AssertionError):
+            cs.check_close("dkv", got, ref, rtol, quiet=True)
+
+    dq = tfa.flash_dq_plain(q, k, v, do, lse, delta, True, scale)
+    # key tile 0's share of dq (every row >= 63 sees all of it)
+    dq_tile0 = tfa.flash_dq_plain(q, k[:, :64].contiguous(),
+                                  v[:, :64].contiguous(), do, lse, delta,
+                                  False, scale)
+    dq_cut = dq.float()
+    dq_cut[:, s // 2:] -= dq_tile0[:, s // 2:].float()
+    with pytest.raises(AssertionError):
+        cs.check_close("dq", dq_cut.bfloat16(), dq, rtol, quiet=True)
 
 
 def test_llama_forward_matches_reference():
