@@ -13,17 +13,22 @@ Phases, each fatal on failure:
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (RMSNorm; LayerNorm; flash-attention
    forward, dq and dkv at GPT-2's and Llama-2 7B's training shapes, GQA,
-   padded lengths and dropout, whose keep-mask must match exactly), then
-   timed beside its bound, its plain version and the PyTorch call
-   computing the same function. LayerNorm and flash attention are held
+   padded lengths and dropout, whose keep-mask must match exactly; the
+   softmax cross-entropy forward and backward at GPT-2's training logits,
+   Llama's vocabulary, odd vocabularies, logits x100 and labels outside
+   [0, V)), then timed beside its bound, its plain version and the
+   PyTorch call computing the same function. All but RMSNorm are held
    entry by entry (``check_close``: rtol of |plain| + rms(plain)).
-4. serve: Llama-2 7B at full width, fp32, random weights from ``--seed``,
-   behind the continuous-batching ``DecodeServer``: 8 mixed-length
-   prompts from client threads, 32 greedy tokens each. Every RMSNorm of
-   the run must go through the CUDA kernel (launch counts), and two of
-   the requests are replayed through ``decode_step`` with a contiguous
-   cache, teacher-forced along the server's tokens, as the oracle.
-5. profile (only with ``--profile``): a second round whose batch-8
+4. serve: two cells behind the continuous-batching ``DecodeServer``, each
+   with random weights from ``--seed`` at full width and depth, fp32: 8
+   mixed-length prompts from client threads, 32 greedy tokens each.
+   Llama-2 7B (prompts 17-300, max_context 512; every RMSNorm through its
+   kernel) and GPT-2 small (prompts 17-900, max_context 1024; every
+   LayerNorm through its kernel). Launch counts are exact per model step,
+   and two requests of each are replayed through ``decode_step`` with a
+   contiguous cache, teacher-forced along the server's tokens, as the
+   oracle of every token.
+5. profile (only with ``--profile``): a second Llama round whose batch-8
    decode steps run under ``torch.profiler``: device time by kernel
    class and the device's idle share, written to ``--out``.
 6. train: ``create_train_step`` trains ``GPTForCausalLM``.
@@ -37,10 +42,11 @@ Phases, each fatal on failure:
       1024, batch 8, dropout 0, bf16 parameters, fp32 AdamW moments,
       AdamW(3e-4, weight decay 0.01)), 20 steps on one batch: the loss
       must fall by at least 0.5 and every step must launch exactly 12
-      flash forwards, 12 dq, 12 dkv and 25 LayerNorm kernels. Reports
-      tokens/s, ms/step, peak memory and MFU (bench.py's FLOP count over
-      989 TFLOP/s). With ``--profile``, two more steps run under
-      ``torch.profiler`` (one warm-up, one recorded).
+      flash forwards, 12 dq, 12 dkv, 25 LayerNorm, one CE forward and one
+      CE backward kernel. Reports tokens/s, ms/step, peak memory and MFU
+      (bench.py's FLOP count over 989 TFLOP/s). With ``--profile``, two
+      more steps go under ``torch.profiler`` (one warm-up, one
+      recorded).
 
 The line before the last holds the kernel table as JSON; the last line
 is ``{"ok": true, "device": {...}}``, or ``{"ok": "partial", ...}`` when
@@ -66,7 +72,6 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12     # dense tensor-core peak
 
-PROMPT_LENS = (17, 40, 64, 100, 128, 200, 256, 300)
 NEW_TOKENS = 32
 TIE_ATOL = 1e-4
 
@@ -461,24 +466,183 @@ def phase_flash(fa, gen):
     return rows, errs, used
 
 
-def phase_serve(cfg, seed, card, device="cuda"):
-    """Serve the prompts through DecodeServer; check launch counts and
-    the teacher-forced contiguous-cache oracle. Returns (model, prompts,
-    results, rms_norm launches of the run)."""
-    from paddle_tpu_torch.core.random import make_generator
-    from paddle_tpu_torch.models import LlamaForCausalLM
-    from paddle_tpu_torch.ops.kernels.norms import rms_norm
-    from paddle_tpu_torch.serving.decode import DecodeServer
+def ce_bound(kind: str, rows: int, v: int, dtype: torch.dtype):
+    """(bound ms, bound_by) of a softmax-CE forward or backward: logits
+    read once (and dx written once, backward), the int64 labels and the
+    fp32 per-row values once each; about four fp32 operations per element
+    (max, subtract, exp, add; subtract, exp, subtract, multiply)."""
+    es = torch.finfo(dtype).bits // 8
+    per_row = 8 + 2 * 4         # the int64 label; loss and lse, or lse and g
+    nbytes = (1 if kind == "fwd" else 2) * rows * v * es + rows * per_row
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * rows * v / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
-    norms_per_call = 2 * cfg.num_layers + 1
+
+# (name, R, V, dtype, logit scale): GPT-2's training logits (8 x 1024
+# tokens, vocab 50304, bf16), the same vocabulary in fp32, Llama's
+# vocabulary, odd vocabularies on the scalar path (257) and the vector
+# path (200 fp32), and logits x100, where a missing max subtraction
+# overflows exp
+CE_CASES = [
+    ("gpt2-train", 8192, 50304, torch.bfloat16, 1.0),
+    ("gpt2-vocab-fp32", 1024, 50304, torch.float32, 1.0),
+    ("llama-vocab", 2048, 32000, torch.float32, 1.0),
+    ("odd-200", 13, 200, torch.float32, 1.0),
+    ("odd-257", 13, 257, torch.float32, 1.0),
+    ("odd-257-bf16", 13, 257, torch.bfloat16, 1.0),
+    ("scaled-x100", 512, 50304, torch.float32, 100.0),
+]
+# entry-wise (check_close). loss and lse are fp32 at every dtype: the
+# kernel and the plain version differ in the order of the row's sum (on
+# the card the worst entry needed 9e-8, PERF.md; this is 5x that). dx is
+# the same fp32 formula on the same lse (it matched exactly on the card);
+# bf16 then rounds, and one bf16 ulp is at most 2^-7 of |dx|
+CE_RTOL = {"fwd": 5e-7, "bwd": {torch.float32: 2e-6, torch.bfloat16: 1e-2}}
+
+
+def _ce_inputs(gen, rows, v, dtype, scale):
+    """Logits, labels with -1, V and V+5 among them (loss 0, gradient 0),
+    and a random cotangent."""
+    dev = torch.device("cuda")
+    x = (torch.randn(rows, v, device=dev, generator=gen) * scale).to(dtype)
+    lab = torch.randint(0, v, (rows,), device=dev, generator=gen)
+    for i, bad in enumerate((-1, v, v + 5)):
+        lab[i * rows // 3] = bad
+    g = torch.randn(rows, device=dev, generator=gen)
+    return x, lab, g
+
+
+def phase_ce(ce, gen):
+    """CE forward and backward kernels vs their plain versions on every
+    case of CE_CASES (the backward from the plain lse, so that it is held
+    alone), then timed at GPT-2's training shape beside
+    ``F.cross_entropy(reduction="none")`` forward, and forward plus
+    backward. Returns (timing rows, the share of its tolerance each check
+    used)."""
+    errs, used = {}, {}
+    for name, rows, v, dtype, scale in CE_CASES:
+        x, lab, g = _ce_inputs(gen, rows, v, dtype, scale)
+        log(f"  softmax_xent {name}: [{rows},{v}] {str(dtype)[6:]} "
+            f"scale {scale:g}")
+        loss, lse = ce.softmax_xent_fwd(x, lab)
+        lossp, lsep = ce.softmax_xent_fwd_plain(x, lab)
+        dx = ce.softmax_xent_bwd(x, lab, lsep, g)
+        dxp = ce.softmax_xent_bwd_plain(x, lab, lsep, g)
+        torch.cuda.synchronize()
+        valid = (lab >= 0) & (lab < v)
+        if not (torch.all(loss[~valid] == 0) and torch.all(dx[~valid] == 0)):
+            raise AssertionError(f"{name}: an invalid label gave a nonzero "
+                                 "loss or gradient")
+        u, e = {}, {}
+        e_loss, u["loss"] = check_close("loss", loss, lossp, CE_RTOL["fwd"])
+        e_lse, u["lse"] = check_close("lse", lse, lsep, CE_RTOL["fwd"])
+        e["fwd"] = max(e_loss, e_lse)
+        e["bwd"], u["dx"] = check_close("dx", dx, dxp, CE_RTOL["bwd"][dtype])
+        errs[name], used[name] = e, u
+        del x, lab, g, loss, lse, lossp, lsep, dx, dxp
+        torch.cuda.empty_cache()
+
+    name, rows, v, dtype, scale = CE_CASES[0]
+    x, lab, g = _ce_inputs(gen, rows, v, dtype, scale)
+    _, lse = ce.softmax_xent_fwd_plain(x, lab)
+    # the library call takes invalid labels only as ignore_index
+    lib_lab = torch.where((lab >= 0) & (lab < v), lab,
+                          torch.full_like(lab, -100))
+    xl = x.detach().clone().requires_grad_()
+    xent = torch.nn.functional.cross_entropy
+
+    def lib_fwd_bwd():
+        out = xent(xl, lib_lab, reduction="none")
+        torch.autograd.grad(out, xl, g.to(out.dtype))
+
+    calls = {
+        "fwd": (lambda: ce.softmax_xent_fwd(x, lab),
+                lambda: ce.softmax_xent_fwd_plain(x, lab),
+                lambda: xent(x, lib_lab, reduction="none")),
+        "bwd": (lambda: ce.softmax_xent_bwd(x, lab, lse, g),
+                lambda: ce.softmax_xent_bwd_plain(x, lab, lse, g),
+                lib_fwd_bwd),
+    }
+    # forward plus backward, the three ways the reference can choose on
+    # its card: both kernels (the port's path, through autograd as a
+    # train step runs it), the forward kernel with the plain backward
+    # from its lse ("pallas_xbwd"), and autograd through the plain
+    # forward (its default, "xla")
+    xv = x.detach().clone().requires_grad_()
+
+    def fwd_kernel_plain_bwd():
+        _, lse_k = ce.softmax_xent_fwd(x, lab)
+        ce.softmax_xent_bwd_plain(x, lab, lse_k, g)
+
+    fwd_bwd = {
+        "kernels": lambda: torch.autograd.grad(ce.softmax_xent(xv, lab), xv,
+                                               g),
+        "fwd_kernel_plain_bwd": fwd_kernel_plain_bwd,
+        "plain_autograd": lambda: torch.autograd.grad(
+            ce.softmax_xent_fwd_plain(xv, lab)[0], xv, g),
+    }
+    fwd_bwd_ms = {k: time_graph_ms(fn, reps=10, iters=3)
+                  for k, fn in fwd_bwd.items()}
+    log("  time softmax_xent forward + backward [8192,50304] bf16: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in fwd_bwd_ms.items()))
+    rows_out = {"fwd_bwd_ms": fwd_bwd_ms}
+    for kind, (kern, plain, lib) in calls.items():
+        row = {"ms": time_graph_ms(kern, reps=10, iters=5),
+               "plain_ms": time_graph_ms(plain, reps=10, iters=2),
+               "library_ms": time_graph_ms(lib, reps=10, iters=5),
+               "eager_ms": time_eager_ms(kern, iters=20),
+               "max_abs_err": errs[name][kind]}
+        row["bound_ms"], row["bound_by"] = ce_bound(kind, rows, v, dtype)
+        rows_out[kind] = row
+        log(f"  time softmax_xent_{kind} [{rows},{v}] bf16: kernel "
+            f"{row['ms']:.4f} ms (eager call {row['eager_ms']:.4f} ms), "
+            f"plain {row['plain_ms']:.4f} ms, F.cross_entropy "
+            f"{'fwd' if kind == 'fwd' else 'fwd+bwd'} "
+            f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
+            f"by {row['bound_by']}")
+    return rows_out, errs, used
+
+
+# the serving cells: (model family, config, norm kernel counted,
+# prompt lengths, max_context). Both run at full width and depth in fp32
+# with random weights; GPT-2's position table has 1024 rows, so its
+# context is at most 1024 and its longest prompt (900) takes the 1024
+# prefill bucket.
+SERVE_CELLS = {
+    "llama7b-fp32-decode8": ("llama", "llama_7b", "rms_norm",
+                             (17, 40, 64, 100, 128, 200, 256, 300), 512),
+    "gpt2s-fp32-decode8": ("gpt", "gpt2_small", "layer_norm",
+                           (17, 64, 128, 200, 333, 512, 700, 900), 1024),
+}
+
+
+def _serve_model(cell, seed, device="cuda"):
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.core.random import make_generator
+    family, cfg_name = SERVE_CELLS[cell][:2]
+    cfg = getattr(models, cfg_name)()
+    cls = (models.LlamaForCausalLM if family == "llama"
+           else models.GPTForCausalLM)
+    model = cls(cfg, device=device, generator=make_generator(seed, device))
+    model.eval()
+    return cfg, model
+
+
+def phase_serve(cell, seed, card, device="cuda"):
+    """Serve the cell's prompts through DecodeServer; check the exact
+    launch counts (2 x layers + 1 norms per model step, prefill or
+    decode, and no other kernel) and the teacher-forced contiguous-cache
+    oracle. Returns (model, prompts, results, launches of the run)."""
+    from paddle_tpu_torch.serving.decode import DecodeServer
+    _, _, norm, prompt_lens, max_context = SERVE_CELLS[cell]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, device=device,
-                             generator=make_generator(seed, device))
-    model.eval()
+    cfg, model = _serve_model(cell, seed, device)
     torch.cuda.synchronize()
+    norms_per_call = 2 * cfg.num_layers + 1
     nparams = sum(p.numel() for p in model.parameters())
-    log(f"  model: {cfg}, {nparams} params fp32, drawn on {device} "
+    log(f"  {cell}: {cfg}, {nparams} params fp32, drawn on {device} "
         f"in {time.perf_counter() - t0:.2f} s")
     # warm the libraries (cuBLAS handles, allocator) outside the counted
     # run, with a one-off contiguous-cache step
@@ -490,9 +654,9 @@ def phase_serve(cfg, seed, card, device="cuda"):
 
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
-               for n in PROMPT_LENS]
-    srv = DecodeServer(model, max_slots=8, page_len=16, max_context=512,
-                       device=device)
+               for n in prompt_lens]
+    srv = DecodeServer(model, max_slots=8, page_len=16,
+                       max_context=max_context, device=device)
     try:
         streams = [None] * len(prompts)
 
@@ -501,7 +665,7 @@ def phase_serve(cfg, seed, card, device="cuda"):
 
         threads = [threading.Thread(target=client, args=(i,), daemon=True)
                    for i in range(len(prompts))]
-        rms_norm.launches = 0                       # counted run starts
+        _reset_counts()                             # counted run starts
         t_start = time.perf_counter()
         for t in threads:
             t.start()
@@ -509,7 +673,7 @@ def phase_serve(cfg, seed, card, device="cuda"):
             t.join(timeout=60)
         outs = [s.result(timeout=600) for s in streams]
         t_total = time.perf_counter() - t_start
-        launches = rms_norm.launches                # counted run ends
+        launches = _counts()                        # counted run ends
         st = srv.stats()
         n_exec = srv.num_executables()
     finally:
@@ -519,12 +683,16 @@ def phase_serve(cfg, seed, card, device="cuda"):
             raise AssertionError(f"request {i} gave {len(o)} tokens, "
                                  f"expected {NEW_TOKENS}")
     steps = st["prefills"] + st["decode_steps"]
-    expect = norms_per_call * steps
+    expect = dict.fromkeys(launches, 0)
+    expect[norm] = norms_per_call * steps
     log(f"  served {len(outs)} requests: {st['prefills']} prefills + "
-        f"{st['decode_steps']} decode steps, rms_norm launches {launches} "
-        f"(expected {norms_per_call} x {steps} = {expect})")
+        f"{st['decode_steps']} decode steps, {norm} launches "
+        f"{launches[norm]} (expected {norms_per_call} x {steps} = "
+        f"{expect[norm]})")
     if launches != expect:
-        raise AssertionError("not every RMSNorm went through the kernel")
+        raise AssertionError(f"launches {launches}, expected {expect}: not "
+                             f"every norm went through the kernel, or "
+                             f"another kernel ran")
     if st["completed"] != len(prompts) or st["failed"]:
         raise AssertionError(f"server stats: {st}")
 
@@ -566,7 +734,7 @@ def phase_serve(cfg, seed, card, device="cuda"):
         "prefill_ms_max": st["prefill_ms"]["max"],
         "batch_size_mean": st["batch_size"]["mean"],
         "prefills": st["prefills"], "decode_steps": st["decode_steps"],
-        "rms_norm_launches": launches,
+        "launches": launches,
         "num_executables": n_exec,
         "peak_mem_bytes": peak,
         "oracle_worst_gap": worst_gap,
@@ -574,7 +742,8 @@ def phase_serve(cfg, seed, card, device="cuda"):
     }
     log(f"  decode: {res['tokens_per_s']:.1f} tokens/s, TTFT p50 "
         f"{res['ttft_ms_p50']:.1f} ms, decode step p50 "
-        f"{res['decode_step_ms_p50']:.2f} ms, peak memory "
+        f"{res['decode_step_ms_p50']:.2f} ms, prefill p50 "
+        f"{res['prefill_ms_p50']:.1f} ms, peak memory "
         f"{peak / 2**30:.2f} GiB [{card}]")
     return model, prompts, res, launches
 
@@ -583,6 +752,8 @@ def _kernel_class(name: str) -> str:
     n = name.lower()
     if "rms_norm_fwd_kernel" in n:
         return "rms_norm kernel"
+    if "layer_norm_fwd_kernel" in n:
+        return "layer_norm kernel"
     if any(k in n for k in ("gemm", "gemv", "splitk")):
         return "matmul (cuBLAS/CUTLASS)"
     if "softmax" in n:
@@ -594,16 +765,16 @@ def _kernel_class(name: str) -> str:
     return "elementwise/copy"
 
 
-def phase_profile(model, prompts, out_dir, device="cuda"):
-    """A second round (not counted): once all 8 prompts are prefilled,
-    ``torch.profiler`` records the batch-8 decode steps. Reports device
-    time by kernel and by class, and the device's busy share of the
-    window's wall time."""
+def phase_profile(cell, model, prompts, out_dir, device="cuda"):
+    """A second round of the cell (not counted): once all 8 prompts are
+    prefilled, ``torch.profiler`` records the batch-8 decode steps.
+    Reports device time by kernel and by class, and the device's busy
+    share of the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.serving.decode import DecodeServer
-    srv = DecodeServer(model, max_slots=8, page_len=16, max_context=512,
-                       device=device)
+    srv = DecodeServer(model, max_slots=8, page_len=16,
+                       max_context=SERVE_CELLS[cell][4], device=device)
     # warmup=1: the profiler starts (and its set-up cost lands) while
     # the prefills run; prof.step() opens the recorded window once every
     # prompt has its first token, so it holds batch-8 decode steps only
@@ -647,7 +818,8 @@ def phase_profile(model, prompts, out_dir, device="cuda"):
                                        classes.items(), key=lambda kv: -kv[1])},
            "top_kernels_us": top}
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "decode_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"decode_profile-{cell}.txt"),
+              "w") as f:
         f.write(json.dumps(out, indent=1) + "\n")
         f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
                                           row_limit=30) + "\n")
@@ -664,28 +836,37 @@ TRAIN_STEPS = 20
 TRAIN_LR = 3e-4
 
 
-def _flash_counts():
+def _wrappers():
+    """Every kernel wrapper, by the name the kernels line gives it."""
+    from paddle_tpu_torch.ops.kernels import cross_entropy as ce
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import norms
-    return {"flash_fwd": fa.flash_fwd.launches,
-            "flash_dq": fa.flash_dq.launches,
-            "flash_dkv": fa.flash_dkv.launches,
-            "layer_norm": norms.layer_norm.launches}
+    return {"rms_norm": norms.rms_norm, "layer_norm": norms.layer_norm,
+            "softmax_xent_fwd": ce.softmax_xent_fwd,
+            "softmax_xent_bwd": ce.softmax_xent_bwd,
+            "flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
+            "flash_dkv": fa.flash_dkv}
+
+
+def _counts() -> dict:
+    return {k: w.launches for k, w in _wrappers().items()}
 
 
 def _reset_counts():
-    from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    from paddle_tpu_torch.ops.kernels import norms
-    fa.flash_fwd.launches = fa.flash_dq.launches = 0
-    fa.flash_dkv.launches = norms.layer_norm.launches = 0
+    for w in _wrappers().values():
+        w.launches = 0
 
 
 def _expected_counts(layers: int, steps: int) -> dict:
-    """Per step: one flash forward, dq and dkv per layer; two LayerNorms
-    per layer and the final one."""
-    return {"flash_fwd": layers * steps, "flash_dq": layers * steps,
-            "flash_dkv": layers * steps,
-            "layer_norm": (2 * layers + 1) * steps}
+    """Per train step: one flash forward, dq and dkv per layer; two
+    LayerNorms per layer and the final one; one CE forward and one CE
+    backward."""
+    out = dict.fromkeys(_wrappers(), 0)
+    out.update(flash_fwd=layers * steps, flash_dq=layers * steps,
+               flash_dkv=layers * steps,
+               layer_norm=(2 * layers + 1) * steps,
+               softmax_xent_fwd=steps, softmax_xent_bwd=steps)
+    return out
 
 
 def phase_train_oracle(seed):
@@ -711,14 +892,14 @@ def phase_train_oracle(seed):
              for m in (cpu, gpu)}
     _reset_counts()
     loss_gpu = float(steps[gpu](x, y, TRAIN_LR))
-    counts = _flash_counts()
+    counts = _counts()
     t0 = time.perf_counter()
     loss_cpu = float(steps[cpu](x, y, TRAIN_LR))
     log(f"  oracle: loss card {loss_gpu:.6f}, CPU plain {loss_cpu:.6f} "
         f"({time.perf_counter() - t0:.1f} s on the CPU); launches {counts}")
-    if counts != _expected_counts(cfg.num_layers, 1):
-        raise AssertionError(f"oracle launches {counts}, expected "
-                             f"{_expected_counts(cfg.num_layers, 1)}")
+    expect = _expected_counts(cfg.num_layers, 1)
+    if counts != expect:
+        raise AssertionError(f"oracle launches {counts}, expected {expect}")
     if not abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu):
         raise AssertionError("oracle loss differs beyond rtol 1e-4")
     # every gradient within 1e-3 of its own max-abs. The key projection's
@@ -754,7 +935,9 @@ def phase_train_oracle(seed):
 
 def _train_kernel_class(name: str) -> str:
     n = name.lower()
-    for key, cls in (("fwd_kernel<", "flash fwd kernel"),
+    for key, cls in (("softmax_xent_fwd_kernel", "CE fwd kernel"),
+                     ("softmax_xent_bwd_kernel", "CE bwd kernel"),
+                     ("fwd_kernel<", "flash fwd kernel"),
                      ("dq_kernel", "flash dq kernel"),
                      ("dkv_kernel", "flash dkv kernel"),
                      ("layer_norm_fwd_kernel", "layer_norm kernel")):
@@ -805,7 +988,7 @@ def phase_train_full(seed, card, profile, out_dir):
             t1 = time.perf_counter()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    counts = _flash_counts()                         # counted run ends
+    counts = _counts()                               # counted run ends
     losses = [float(v) for v in losses]
     peak = torch.cuda.max_memory_allocated()
     ms_step = (t2 - t1) / (TRAIN_STEPS - 1) * 1e3
@@ -830,9 +1013,9 @@ def phase_train_full(seed, card, profile, out_dir):
     if not losses[0] - losses[-1] >= 0.5:
         raise AssertionError(f"loss fell by {losses[0] - losses[-1]:.4f} "
                              f"< 0.5 over {TRAIN_STEPS} steps")
-    if counts != _expected_counts(L, TRAIN_STEPS):
-        raise AssertionError(f"launches {counts}, expected "
-                             f"{_expected_counts(L, TRAIN_STEPS)}")
+    expect = _expected_counts(L, TRAIN_STEPS)
+    if counts != expect:
+        raise AssertionError(f"launches {counts}, expected {expect}")
     if profile:
         res["profile"] = phase_train_profile(step, x, y, out_dir)
     return res
@@ -918,6 +1101,7 @@ def main(argv=None) -> int:
         return 2
     # the port itself: a checkout without it fails here
     from paddle_tpu_torch.ops.kernels import _build, norms
+    from paddle_tpu_torch.ops.kernels import cross_entropy as ce
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
     card = card_line()
@@ -950,30 +1134,45 @@ def main(argv=None) -> int:
         for kind, row in flash_rows.items():
             rows["flash_" + kind] = row
         torch.cuda.empty_cache()
-
-    launches = {}
-    if "serve" in phases:
-        log("serve:")
-        from paddle_tpu_torch.models import llama_7b
-        model, prompts, report["serve"], launches["rms_norm"] = phase_serve(
-            llama_7b(), args.seed, card)
-        if args.profile:
-            log("profile:")
-            report["profile"] = phase_profile(model, prompts, args.out)
-        del model
+        ce_rows, report["ce_errors"], report["ce_tolerance_used"] = \
+            phase_ce(ce, gen)
+        report["ce_fwd_bwd_ms"] = ce_rows.pop("fwd_bwd_ms")
+        for kind, row in ce_rows.items():
+            rows["softmax_xent_" + kind] = row
         torch.cuda.empty_cache()
+
+    by_path = {}                        # launches of each path's counted run
+    if "serve" in phases:
+        report["serve"] = {}
+        for cell in SERVE_CELLS:
+            log(f"serve {cell}:")
+            model, prompts, report["serve"][cell], by_path[cell] = \
+                phase_serve(cell, args.seed, card)
+            if args.profile:
+                log(f"profile {cell}:")
+                report["serve"][cell]["profile"] = phase_profile(
+                    cell, model, prompts, args.out)
+            del model
+            torch.cuda.empty_cache()
 
     if "train" in phases:
-        log("train:")
-        report["train_oracle"] = phase_train_oracle(args.seed)
+        cell = "gpt2s-bf16-train-b8"
+        log(f"train {cell}:")
+        oracle = phase_train_oracle(args.seed)
         torch.cuda.empty_cache()
-        report["train"] = phase_train_full(args.seed, card, args.profile,
-                                           args.out)
-        launches.update(report["train"]["launches"])
+        res = phase_train_full(args.seed, card, args.profile, args.out)
+        res["oracle"] = oracle
+        report["train"] = {cell: res}
+        by_path[cell] = res["launches"]
+        torch.cuda.empty_cache()
 
     sources = {
         "rms_norm": ("rms_norm.cu", "paddle_tpu/ops/pallas/norms.py:66"),
         "layer_norm": ("layer_norm.cu", "paddle_tpu/ops/pallas/norms.py:162"),
+        "softmax_xent_fwd": ("cross_entropy.cu",
+                             "paddle_tpu/ops/pallas/cross_entropy.py:32"),
+        "softmax_xent_bwd": ("cross_entropy.cu",
+                             "paddle_tpu/ops/pallas/cross_entropy.py:48"),
         "flash_fwd": ("flash_attention.cu",
                       "paddle_tpu/ops/pallas/flash_attention.py:158"),
         "flash_dq": ("flash_attention.cu",
@@ -981,14 +1180,17 @@ def main(argv=None) -> int:
         "flash_dkv": ("flash_attention.cu",
                       "paddle_tpu/ops/pallas/flash_attention.py:455"),
     }
+    report["launches_by_path"] = by_path
     kernels = []
     for name, (src, replaces) in sources.items():
         row = rows.get(name, {})
+        mine = {path: c[name] for path, c in by_path.items() if c[name]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"paddle_tpu_torch/ops/kernels/csrc/{src}",
             "replaces": replaces,
-            "launches": launches.get(name),
+            "launches": sum(mine.values()) if by_path else None,
+            "launches_by_path": mine,
             **{k: row.get(k) for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")}})

@@ -11,6 +11,7 @@ GPU.
 """
 from __future__ import annotations
 
+from .core.flags import get_flags, set_flags
 from .device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "get_flags", "set_flags"]

@@ -6,8 +6,15 @@ parameter names, so a state_dict carries across by name
 (``models/convert.py``). On the card every attention forward and
 backward is the hand-written flash-attention kernel and every LayerNorm
 forward the hand-written LayerNorm kernel. Training goes through
-``models/trainer.py`` ``create_train_step``; ``decode_step`` belongs to
-a later slice of the port.
+``models/trainer.py`` ``create_train_step``; the loss's cross-entropy
+is the hand-written CE forward and backward kernels on the card
+(``nn/functional/loss.py``).
+
+``decode_step`` is the cached decode/prefill step the serving engine
+runs: the pre-norm layers replayed with positioned cache writes and the
+plain, length-masked ``decode_attention`` (the reference has no decode
+attention kernel), with every LayerNorm the hand-written kernel on the
+card.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from ..nn import functional as F
 from ..nn.initializer import Normal
 from ..nn.layer import (Dropout, Embedding, LayerNorm, TransformerEncoder,
                         TransformerEncoderLayer)
+from .decode import ContiguousKV, decode_attention, init_contiguous_cache
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt2_small",
            "gpt2_tiny"]
@@ -113,3 +121,64 @@ class GPTForCausalLM(nn.Module):
         b, s, v = logits.shape
         return F.cross_entropy(logits.reshape(b * s, v),
                                labels.reshape(b * s))
+
+    # -- autoregressive decode (use_cache path) ---------------------------
+    def decode_meta(self) -> dict:
+        """Cache geometry the serving decode engine sizes its KV pools
+        from. ``max_len`` is the position table's length: ``wpe`` has no
+        row past it."""
+        cfg = self.config
+        return {"num_layers": cfg.num_layers,
+                "num_kv_heads": cfg.num_heads,
+                "head_dim": cfg.hidden_size // cfg.num_heads,
+                "max_len": cfg.max_position_embeddings,
+                "vocab_size": cfg.vocab_size}
+
+    def init_decode_cache(self, batch: int, max_len: Optional[int] = None):
+        """Contiguous per-layer (k, v) caches for ``decode_step``, on the
+        model's device."""
+        m = self.decode_meta()
+        return init_contiguous_cache(
+            m["num_layers"], batch, max_len or m["max_len"],
+            m["num_kv_heads"], m["head_dim"], device=self.device)
+
+    @torch.inference_mode()
+    def decode_step(self, tokens, positions, kv_caches, kv_ops=None):
+        """One cached decode (or prefill) step: write this step's K/V at
+        ``positions`` and attend over the cached prefix.
+
+        ``tokens``: [B, S] (or [B]) ids, S = 1 for a decode step and the
+        prompt bucket for a prefill; ``positions``: [B], the tokens
+        already cached per slot (the write start); ``kv_caches``:
+        per-layer caches for ``kv_ops`` (default ``ContiguousKV``).
+        Returns (logits [B, S, V], new caches). Dropout is never applied.
+        Position ids past the ``wpe`` table (right-padding of a prefill
+        bucket) clamp to its last row, as in the reference; the masked
+        attention never lets a real token see them."""
+        kv_ops = kv_ops or ContiguousKV()
+        dev = self.device
+        tok = torch.as_tensor(tokens, device=dev)
+        if tok.dim() == 1:
+            tok = tok[:, None]
+        pos = torch.as_tensor(positions, device=dev)
+        b, s = tok.shape
+        gpt = self.gpt
+        pos_ids = pos.long()[:, None] + torch.arange(s, device=dev)
+        h = gpt.wte(tok) + gpt.wpe(pos_ids)
+        new_caches = []
+        # the pre-norm encoder layers, replayed with positioned cache
+        # writes
+        for i, layer in enumerate(gpt.encoder.layers):
+            attn = layer.self_attn
+            hn = layer.norm1(h)
+            q = attn._shape(attn.q_proj(hn))
+            k = attn._shape(attn.k_proj(hn))
+            v = attn._shape(attn.v_proj(hn))
+            k_all, v_all, cache = kv_ops.update(i, kv_caches[i], k, v, pos)
+            o = decode_attention(q, k_all, v_all, pos)
+            h = h + attn.out_proj(o.reshape(b, s, attn.embed_dim))
+            hn = layer.norm2(h)
+            h = h + layer.linear2(layer.activation(layer.linear1(hn)))
+            new_caches.append(cache)
+        h = gpt.ln_f(h)
+        return torch.matmul(h, gpt.wte.weight.t()), new_caches   # tied head

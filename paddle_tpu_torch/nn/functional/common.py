@@ -5,6 +5,8 @@ from typing import Optional
 
 import torch
 
+from ...core import flags as _flags
+
 __all__ = ["linear", "embedding", "dropout"]
 
 
@@ -17,8 +19,21 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 
 
 def embedding(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """Rows of ``weight`` [vocab, dim] at the integer ids ``x``."""
-    return weight[x.long()]
+    """Rows of ``weight`` [vocab, dim] at the integer ids ``x``.
+
+    Ids outside ``[0, vocab)`` clamp to the nearest row, as the
+    reference's ``jnp.take(..., mode="clip")`` does: never Python's
+    negative indexing, never an out-of-bounds read on the card. With
+    ``FLAGS_check_index_bounds`` such ids raise ``ValueError`` first
+    (one host sync per call)."""
+    ids = x.long()
+    n = weight.shape[0]
+    if _flags.get_flag("check_index_bounds") and ids.numel():
+        lo, hi = int(ids.min()), int(ids.max())
+        if lo < 0 or hi >= n:
+            raise ValueError(f"embedding ids out of range [0, {n}): "
+                             f"min={lo}, max={hi}")
+    return weight[ids.clamp(0, n - 1)]
 
 
 def dropout(x: torch.Tensor, p: float = 0.5, training: bool = True,

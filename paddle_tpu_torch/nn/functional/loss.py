@@ -4,10 +4,10 @@
 softmax cross-entropy in fp32 (logsumexp minus the label's logit; a
 label outside ``[0, V)``, ``ignore_index`` included, gives 0 loss and 0
 gradient) and, for ``reduction="mean"``, the sum over the valid labels
-divided by their count. It is plain PyTorch; the reference's Pallas CE
-kernels (``ops/pallas/cross_entropy.py``) belong to a later slice of the
-port, and the reference's own default on the training path is the XLA
-form this mirrors.
+divided by their count. The per-row core is
+``ops/kernels/cross_entropy.py`` ``softmax_xent``: the hand-written CUDA
+forward and backward kernels on the card, their plain versions on the
+CPU.
 """
 from __future__ import annotations
 
@@ -15,20 +15,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["cross_entropy", "softmax_xent_core"]
+from ...ops.kernels.cross_entropy import softmax_xent
 
-
-def softmax_xent_core(logits: torch.Tensor, labels: torch.Tensor
-                      ) -> torch.Tensor:
-    """Per-row hard-label softmax CE of ``logits`` [R, V] in fp32; labels
-    outside ``[0, V)`` give 0."""
-    logits32 = logits.float()
-    lse = torch.logsumexp(logits32, dim=-1)
-    li = labels.long()
-    valid = (li >= 0) & (li < logits.shape[-1])
-    safe = torch.where(valid, li, torch.zeros_like(li))
-    picked = torch.gather(logits32, -1, safe[:, None])[:, 0]
-    return torch.where(valid, lse - picked, torch.zeros_like(lse))
+__all__ = ["cross_entropy"]
 
 
 def cross_entropy(input: torch.Tensor, label: torch.Tensor,
@@ -56,8 +45,7 @@ def cross_entropy(input: torch.Tensor, label: torch.Tensor,
         flat_labels = torch.where(flat_labels == ignore_index,
                                   torch.full_like(flat_labels, -1),
                                   flat_labels)
-    per = softmax_xent_core(input.reshape(-1, v), flat_labels).reshape(
-        li.shape)
+    per = softmax_xent(input.reshape(-1, v), flat_labels).reshape(li.shape)
     if reduction == "mean" and ignore_index is not None:
         denom = torch.clamp((li != ignore_index).float().sum(), min=1.0)
         return per.sum() / denom

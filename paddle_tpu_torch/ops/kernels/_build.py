@@ -62,6 +62,17 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
                               ctypes.c_void_p], ctypes.c_int),
         "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "cross_entropy": {
+        # (x, labels int64, loss, lse, rows, v, x_dtype, stream)
+        "softmax_xent_fwd": ([ctypes.c_void_p] * 4
+                             + [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+        # (x, labels int64, lse, g, dx, rows, v, x_dtype, stream)
+        "softmax_xent_bwd": ([ctypes.c_void_p] * 5
+                             + [ctypes.c_longlong, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+        "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
     "flash_attention": {
         # (tensors..., B, Sq, Sk, Hq, Hk, D, scale, causal, dropout_on,
         #  threshold, keep_scale, seed or NULL, dtype, stream)

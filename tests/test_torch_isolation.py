@@ -76,6 +76,9 @@ def test_importing_every_module_loads_no_jax():
         "new = sorted(set(sys.modules) - before)\n"
         "bad = [m for m in new if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu')]\n"
+        "need = ['paddle_tpu_torch.core.flags', "
+        "'paddle_tpu_torch.ops.kernels.cross_entropy']\n"
+        "assert not set(need) - set(names), sorted(set(need) - set(names))\n"
         "print(len(names), bad)\n"
         "assert 'jax' not in sys.modules and 'paddle_tpu' not in "
         "sys.modules, bad\n")
