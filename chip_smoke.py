@@ -12,13 +12,17 @@ Phases, each fatal on failure:
    nvcc for sm_90a (one nvcc per source, in parallel), timed.
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (RMSNorm; LayerNorm; flash-attention
-   forward, dq and dkv at GPT-2's and Llama-2 7B's training shapes, GQA,
-   padded lengths and dropout, whose keep-mask must match exactly; the
-   softmax cross-entropy forward and backward at GPT-2's training logits,
+   forward and dkv on both routes, wgmma and FMA, and dq, at GPT-2's and
+   Llama-2 7B's training shapes, GQA, padded lengths, rows that see no
+   key, a single query, head dims of 32, 96 and 160, and dropout (also at
+   D = 128), whose keep-mask must match exactly in fp32 and bf16; the softmax
+   cross-entropy forward and backward at GPT-2's training logits,
    Llama's vocabulary, odd vocabularies, logits x100 and labels outside
    [0, V)), then timed beside its bound, its plain version and the
-   PyTorch call computing the same function. All but RMSNorm are held
-   entry by entry (``check_close``: rtol of |plain| + rms(plain)).
+   PyTorch call computing the same function (for the flash backward
+   kernels, sdpa's backward alone). All but RMSNorm are held entry by
+   entry (``check_close``: rtol of |plain| + rms(plain)); each flash case
+   must launch exactly the kernels of ``flash_route``'s choice.
 4. serve: two cells behind the continuous-batching ``DecodeServer``, each
    with random weights from ``--seed`` at full width and depth, fp32: 8
    mixed-length prompts from client threads, 32 greedy tokens each.
@@ -34,7 +38,8 @@ Phases, each fatal on failure:
 6. train: ``create_train_step`` trains ``GPTForCausalLM``.
    a. oracle: GPT-2 small's widths with 2 layers, fp32, one step of
       batch 1 x 1024 on the card (kernels) and on the CPU (plain
-      versions) from the same weights: loss within rtol 1e-4, every
+      versions) from the same weights, through the FMA flash kernels
+      (fp32): loss within rtol 1e-4, every
       gradient within 1e-3 of its largest magnitude (the key
       projection's bias, whose gradient is zero in exact arithmetic,
       within 1e-6 of the model's largest gradient magnitude).
@@ -42,8 +47,8 @@ Phases, each fatal on failure:
       1024, batch 8, dropout 0, bf16 parameters, fp32 AdamW moments,
       AdamW(3e-4, weight decay 0.01)), 20 steps on one batch: the loss
       must fall by at least 0.5 and every step must launch exactly 12
-      flash forwards, 12 dq, 12 dkv, 25 LayerNorm, one CE forward and one
-      CE backward kernel. Reports tokens/s, ms/step, peak memory and MFU
+      wgmma flash forwards, 12 (FMA) dq, 12 wgmma dkv, 25 LayerNorm, one
+      CE forward and one CE backward kernel. Reports tokens/s, ms/step, peak memory and MFU
       (bench.py's FLOP count over 989 TFLOP/s). With ``--profile``, two
       more steps go under ``torch.profiler`` (one warm-up, one
       recorded).
@@ -333,7 +338,9 @@ def flash_bound(kind, b, sq, sk, hq, hk, d, dtype, causal):
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-# (name, B, Sq, Sk, Hq, Hk, D, dtype, causal, dropout rate)
+# (name, B, Sq, Sk, Hq, Hk, D, dtype, causal, dropout rate). bf16 with a
+# head dim that is a multiple of 8 up to 128 takes the wgmma kernels
+# (forward, dkv); fp32 and wider heads the FMA kernels (flash_route)
 FLASH_CASES = [
     ("gpt2-train", 8, 1024, 1024, 12, 12, 64, torch.bfloat16, True, 0.0),
     ("llama7b", 1, 2048, 2048, 32, 32, 128, torch.bfloat16, True, 0.0),
@@ -342,6 +349,22 @@ FLASH_CASES = [
     ("padded-non-causal", 2, 200, 333, 4, 2, 96, torch.float32, False, 0.0),
     ("dropout-0.1", 2, 512, 512, 4, 4, 64, torch.float32, True, 0.1),
     ("dropout-0.1-bf16", 2, 512, 512, 4, 2, 64, torch.bfloat16, True, 0.1),
+    # the wgmma route's edges: ragged tiles, rows that see no key (Sq > Sk
+    # under causal), head dims TMA zero-fills to 128 and to 64, dropout at
+    # D = 128 with GQA 4/1, a single query; and a bf16 head dim above 128,
+    # which stays on the FMA kernels
+    ("padded-200/333-bf16", 2, 200, 333, 4, 4, 64, torch.bfloat16, True,
+     0.0),
+    ("empty-rows-333/200-bf16", 2, 333, 200, 4, 4, 64, torch.bfloat16, True,
+     0.0),
+    ("non-causal-d96-gqa-bf16", 2, 200, 333, 4, 2, 96, torch.bfloat16, False,
+     0.0),
+    ("dropout-0.2-d128-gqa-4/1-bf16", 2, 130, 130, 4, 1, 128, torch.bfloat16,
+     True, 0.2),
+    ("dropout-0.1-d32-non-causal-bf16", 1, 257, 513, 2, 2, 32,
+     torch.bfloat16, False, 0.1),
+    ("one-query-1/300-bf16", 1, 1, 300, 4, 2, 64, torch.bfloat16, True, 0.0),
+    ("d160-bf16", 1, 256, 256, 4, 2, 160, torch.bfloat16, True, 0.0),
 ]
 # entry-wise (check_close), 2-5x the most the kernels needed on the card
 # (PERF.md). dq and dkv differ from their plain versions only in the order
@@ -360,61 +383,69 @@ def _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype):
     return mk(sq, hq), mk(sk, hk), mk(sk, hk), mk(sq, hq)
 
 
-def phase_flash(fa, gen):
-    """Flash forward, dq and dkv kernels vs their plain versions on every
-    case of FLASH_CASES, the dropout keep-mask read back exactly, then the
-    three kernels timed at GPT-2's training shape. Returns (timing rows,
-    max |kernel - plain| by case and kernel, the share of its tolerance
-    each check used)."""
-    errs, used = {}, {}
-    for name, b, sq, sk, hq, hk, d, dtype, causal, rate in FLASH_CASES:
-        q, k, v, do = _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype)
-        seed = torch.tensor([987654321], dtype=torch.int32, device="cuda")
-        scale = 1.0 / math.sqrt(d)
-        tol = FLASH_RTOL["bwd"][dtype]
-        log(f"  flash {name}: B{b} Sq{sq} Sk{sk} H{hq}/{hk} D{d} "
-            f"{str(dtype)[6:]} causal={causal} dropout={rate}")
-        out, lse = fa.flash_fwd(q, k, v, causal, scale, rate, seed)
-        outp, lsep = fa.flash_fwd_plain(q, k, v, causal, scale, rate, seed)
-        e, u = {}, {}
-        e["fwd"], u["out"] = check_close("out", out, outp,
-                                         FLASH_RTOL["fwd"][dtype])
-        _, u["lse"] = check_close("lse", lse, lsep, LSE_RTOL)
-        delta = (do.float() * outp.float()).sum(-1).transpose(1, 2) \
-            .contiguous()
-        dq = fa.flash_dq(q, k, v, do, lsep, delta, causal, scale, rate, seed)
-        e["dq"], u["dq"] = check_close("dq", dq, fa.flash_dq_plain(
-            q, k, v, do, lsep, delta, causal, scale, rate, seed), tol)
-        dk, dv = fa.flash_dkv(q, k, v, do, lsep, delta, causal, scale, rate,
-                              seed)
-        dkp, dvp = fa.flash_dkv_plain(q, k, v, do, lsep, delta, causal,
-                                      scale, rate, seed)
-        dk_err, u["dk"] = check_close("dk", dk, dkp, tol)
-        dv_err, u["dv"] = check_close("dv", dv, dvp, tol)
-        e["dkv"] = max(dk_err, dv_err)
-        errs[name], used[name] = e, u
-        del q, k, v, do, out, outp, dq, dk, dv, dkp, dvp
-        torch.cuda.empty_cache()
+def _sfx(route: str) -> str:
+    """Suffix of a flash kernel's name on ``route`` (flash_fwd_wgmma)."""
+    return "_wgmma" if route == "wgmma" else ""
 
-    # the keep-mask, read back exactly: with v = identity (Sk = D) each
-    # output row is p_v / l, zero exactly where the mask drops a key
-    b, s, h, d, rate = 2, 64, 3, 64, 0.1
-    q = torch.randn(b, s, h, d, device="cuda", generator=gen) * 0.3
-    k = torch.randn(b, s, h, d, device="cuda", generator=gen) * 0.3
-    v = torch.eye(s, device="cuda")[None, :, None, :].expand(
-        b, s, h, d).contiguous()
-    seed = torch.tensor([-424242], dtype=torch.int32, device="cuda")
-    out, _ = fa.flash_fwd(q, k, v, False, 1.0 / math.sqrt(d), rate, seed)
-    got = (out != 0).permute(0, 2, 1, 3).reshape(b * h, s, s)
-    keep = fa.dropout_keep_mask(seed, b * h, s, s, rate)
-    if not torch.equal(got, keep):
-        raise AssertionError(f"dropout keep-mask differs at "
-                             f"{int((got != keep).sum())} of {keep.numel()}")
-    log(f"  flash dropout keep-mask: identical at all {keep.numel()} "
-        f"positions ({1 - keep.float().mean().item():.4f} dropped, rate "
-        f"{rate})")
 
-    name, b, sq, sk, hq, hk, d, dtype, causal, _ = FLASH_CASES[0]
+def _flash_case(fa, gen, case):
+    """One FLASH_CASES entry: the public wrappers must launch exactly the
+    kernels of ``flash_route``'s choice, and each result is held against
+    its plain version; on a wgmma case the FMA forward and dkv are held
+    too, on the same inputs. Returns (max |kernel - plain| by kernel,
+    the share of its tolerance each check used)."""
+    name, b, sq, sk, hq, hk, d, dtype, causal, rate = case
+    q, k, v, do = _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype)
+    seed = torch.tensor([987654321], dtype=torch.int32, device="cuda")
+    scale = 1.0 / math.sqrt(d)
+    route = fa.flash_route(dtype, d)
+    log(f"  flash {name}: B{b} Sq{sq} Sk{sk} H{hq}/{hk} D{d} "
+        f"{str(dtype)[6:]} causal={causal} dropout={rate}; route {route}")
+    outp, lsep = fa.flash_fwd_plain(q, k, v, causal, scale, rate, seed)
+    delta = (do.float() * outp.float()).sum(-1).transpose(1, 2).contiguous()
+    dqp = fa.flash_dq_plain(q, k, v, do, lsep, delta, causal, scale, rate,
+                            seed)
+    dkp, dvp = fa.flash_dkv_plain(q, k, v, do, lsep, delta, causal, scale,
+                                  rate, seed)
+    tol = FLASH_RTOL["bwd"][dtype]
+    e, u = {}, {}
+
+    def hold(sfx, out, lse, dk, dv):
+        e["fwd" + sfx], u["out" + sfx] = check_close(
+            "out" + sfx, out, outp, FLASH_RTOL["fwd"][dtype])
+        _, u["lse" + sfx] = check_close("lse" + sfx, lse, lsep, LSE_RTOL)
+        dk_err, u["dk" + sfx] = check_close("dk" + sfx, dk, dkp, tol)
+        dv_err, u["dv" + sfx] = check_close("dv" + sfx, dv, dvp, tol)
+        e["dkv" + sfx] = max(dk_err, dv_err)
+
+    before = _counts()
+    out, lse = fa.flash_fwd(q, k, v, causal, scale, rate, seed)
+    dq = fa.flash_dq(q, k, v, do, lsep, delta, causal, scale, rate, seed)
+    dk, dv = fa.flash_dkv(q, k, v, do, lsep, delta, causal, scale, rate,
+                          seed)
+    moved = {n: c - before[n] for n, c in _counts().items()
+             if c != before[n]}
+    expect = {f"flash_fwd{_sfx(route)}": 1, "flash_dq": 1,
+              f"flash_dkv{_sfx(route)}": 1}
+    if moved != expect:
+        raise AssertionError(f"{name}: launches {moved}, expected {expect}")
+    hold(_sfx(route), out, lse, dk, dv)
+    e["dq"], u["dq"] = check_close("dq", dq, dqp, tol)
+    if route == "wgmma":
+        out, lse = fa._fwd_launch(q, k, v, causal, scale, rate, seed,
+                                  route="fma")
+        dk, dv = fa._dkv_launch(q, k, v, do, lsep, delta, causal, scale,
+                                rate, seed, route="fma")
+        hold("", out, lse, dk, dv)
+    return e, u
+
+
+def _flash_timings(fa, gen, case, kinds):
+    """Device times of the named flash kernels (kind + route suffix) at the
+    case's shape beside their plain versions, their bound and sdpa:
+    forward, and backward alone (the forward-plus-backward graph less the
+    forward graph), which computes dq, dk and dv together."""
+    name, b, sq, sk, hq, hk, d, dtype, causal, _ = case
     q, k, v, do = _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype)
     scale = 1.0 / math.sqrt(d)
     _, lse = fa.flash_fwd_plain(q, k, v, causal, scale)
@@ -428,42 +459,103 @@ def phase_flash(fa, gen):
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def lib_fwd_bwd():
-        o = sdpa(qt, kt, vt, is_causal=True)
+        o = sdpa(qt, kt, vt, is_causal=causal)
         torch.autograd.grad(o, (qt, kt, vt), dot)
 
-    calls = {
-        "fwd": (lambda: fa.flash_fwd(q, k, v, causal, scale),
-                lambda: fa.flash_fwd_plain(q, k, v, causal, scale),
-                lambda: sdpa(qt, kt, vt, is_causal=True)),
-        "dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, causal, scale),
-               lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, causal,
-                                         scale), lib_fwd_bwd),
-        "dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal, scale),
-                lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, causal,
-                                           scale), lib_fwd_bwd),
-    }
     # device time per call: 10 calls captured in a CUDA graph, replayed
-    # between CUDA events (the ctypes launch cost stays out, as PyTorch's
-    # own launch cost does for the library call)
-    lib_ms = {"fwd": time_graph_ms(calls["fwd"][2], reps=10, iters=5),
-              "bwd": time_graph_ms(lib_fwd_bwd, reps=10, iters=5)}
-    rows = {}
-    for kind, (kern, plain, _) in calls.items():
-        row = {"ms": time_graph_ms(kern, reps=10, iters=5),
-               "plain_ms": time_graph_ms(plain, reps=10, iters=2),
-               "library_ms": lib_ms["fwd" if kind == "fwd" else "bwd"],
-               "eager_ms": time_eager_ms(kern, iters=10),
-               "max_abs_err": errs[name][kind]}
+    # between CUDA events (the ctypes launch cost and the per-call tensor
+    # map encoding stay out, as PyTorch's own launch cost does for the
+    # library call)
+    lib_fwd = time_graph_ms(lambda: sdpa(qt, kt, vt, is_causal=causal),
+                            reps=10, iters=5)
+    lib_fwd_bwd_ms = time_graph_ms(lib_fwd_bwd, reps=10, iters=5)
+    lib = {"fwd": lib_fwd, "bwd": lib_fwd_bwd_ms - lib_fwd}
+    kern = {
+        "fwd": lambda: fa._fwd_launch(q, k, v, causal, scale, 0.0, None,
+                                      route="fma"),
+        "fwd_wgmma": lambda: fa.flash_fwd(q, k, v, causal, scale),
+        "dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, causal, scale),
+        "dkv": lambda: fa._dkv_launch(q, k, v, do, lse, delta, causal, scale,
+                                      0.0, None, route="fma"),
+        "dkv_wgmma": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal,
+                                          scale),
+    }
+    plain = {
+        "fwd": lambda: fa.flash_fwd_plain(q, k, v, causal, scale),
+        "dq": lambda: fa.flash_dq_plain(q, k, v, do, lse, delta, causal,
+                                        scale),
+        "dkv": lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta, causal,
+                                          scale),
+    }
+    plain_ms = {}
+    rows = {"sdpa_fwd_ms": lib["fwd"], "sdpa_bwd_ms": lib["bwd"],
+            "sdpa_fwd_bwd_ms": lib_fwd_bwd_ms}
+    for kind in kinds:
+        base = kind.split("_")[0]
+        if base not in plain_ms:
+            plain_ms[base] = time_graph_ms(plain[base], reps=10, iters=2)
+        row = {"ms": time_graph_ms(kern[kind], reps=10, iters=5),
+               "plain_ms": plain_ms[base],
+               "library_ms": lib["fwd" if base == "fwd" else "bwd"],
+               "eager_ms": time_eager_ms(kern[kind], iters=10)}
         row["bound_ms"], row["bound_by"] = flash_bound(
-            kind, b, sq, sk, hq, hk, d, dtype, causal)
+            base, b, sq, sk, hq, hk, d, dtype, causal)
         rows[kind] = row
-        log(f"  time flash_{kind} {name} bf16: kernel {row['ms']:.3f} ms "
-            f"(eager call {row['eager_ms']:.3f} ms), plain "
-            f"{row['plain_ms']:.3f} ms, "
-            f"{'sdpa fwd' if kind == 'fwd' else 'sdpa fwd+bwd'} "
-            f"{row['library_ms']:.3f} ms; bound {row['bound_ms']:.4f} ms "
+        log(f"  time flash_{kind} {name} {str(dtype)[6:]}: kernel "
+            f"{row['ms']:.4f} ms (eager call {row['eager_ms']:.4f} ms), "
+            f"plain {row['plain_ms']:.3f} ms, sdpa "
+            f"{'fwd' if base == 'fwd' else 'bwd alone'} "
+            f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
             f"by {row['bound_by']}")
-    return rows, errs, used
+    return rows
+
+
+FLASH_KINDS = ("fwd", "fwd_wgmma", "dq", "dkv", "dkv_wgmma")
+
+
+def phase_flash(fa, gen):
+    """Flash kernels vs their plain versions on every case of FLASH_CASES
+    (each on the route ``flash_route`` picks, and on a wgmma case the FMA
+    forward and dkv as well), the dropout keep-mask read back exactly in
+    fp32 (FMA) and bf16 (wgmma), then every kernel timed at GPT-2's
+    training shape and Llama-2 7B's. Returns (timing rows at GPT-2's
+    shape, timing rows at Llama's, max |kernel - plain| by case and
+    kernel, the share of its tolerance each check used)."""
+    errs, used = {}, {}
+    for case in FLASH_CASES:
+        errs[case[0]], used[case[0]] = _flash_case(fa, gen, case)
+        torch.cuda.empty_cache()
+
+    # the keep-mask, read back exactly: with v = identity (Sk = D) each
+    # output row is p_v / l, zero exactly where the mask drops a key
+    b, s, h, d, rate = 2, 64, 3, 64, 0.1
+    for dtype in (torch.float32, torch.bfloat16):
+        q = (torch.randn(b, s, h, d, device="cuda", generator=gen) * 0.3
+             ).to(dtype)
+        k = (torch.randn(b, s, h, d, device="cuda", generator=gen) * 0.3
+             ).to(dtype)
+        v = torch.eye(s, device="cuda")[None, :, None, :].expand(
+            b, s, h, d).contiguous().to(dtype)
+        seed = torch.tensor([-424242], dtype=torch.int32, device="cuda")
+        out, _ = fa.flash_fwd(q, k, v, False, 1.0 / math.sqrt(d), rate, seed)
+        got = (out != 0).permute(0, 2, 1, 3).reshape(b * h, s, s)
+        keep = fa.dropout_keep_mask(seed, b * h, s, s, rate)
+        if not torch.equal(got, keep):
+            raise AssertionError(
+                f"dropout keep-mask ({str(dtype)[6:]}) differs at "
+                f"{int((got != keep).sum())} of {keep.numel()}")
+        log(f"  flash dropout keep-mask {str(dtype)[6:]} "
+            f"({fa.flash_route(dtype, d)} kernel): identical at all "
+            f"{keep.numel()} positions ({1 - keep.float().mean().item():.4f}"
+            f" dropped, rate {rate})")
+
+    rows = _flash_timings(fa, gen, FLASH_CASES[0], FLASH_KINDS)
+    for kind in FLASH_KINDS:
+        rows[kind]["max_abs_err"] = errs[FLASH_CASES[0][0]][kind]
+    torch.cuda.empty_cache()
+    llama = _flash_timings(fa, gen, FLASH_CASES[1], FLASH_KINDS)
+    torch.cuda.empty_cache()
+    return rows, llama, errs, used
 
 
 def ce_bound(kind: str, rows: int, v: int, dtype: torch.dtype):
@@ -844,8 +936,9 @@ def _wrappers():
     return {"rms_norm": norms.rms_norm, "layer_norm": norms.layer_norm,
             "softmax_xent_fwd": ce.softmax_xent_fwd,
             "softmax_xent_bwd": ce.softmax_xent_bwd,
-            "flash_fwd": fa.flash_fwd, "flash_dq": fa.flash_dq,
-            "flash_dkv": fa.flash_dkv}
+            "flash_fwd": fa.flash_fwd, "flash_fwd_wgmma": fa.flash_fwd.wgmma,
+            "flash_dq": fa.flash_dq, "flash_dkv": fa.flash_dkv,
+            "flash_dkv_wgmma": fa.flash_dkv.wgmma}
 
 
 def _counts() -> dict:
@@ -857,15 +950,17 @@ def _reset_counts():
         w.launches = 0
 
 
-def _expected_counts(layers: int, steps: int) -> dict:
-    """Per train step: one flash forward, dq and dkv per layer; two
-    LayerNorms per layer and the final one; one CE forward and one CE
-    backward."""
+def _expected_counts(layers: int, steps: int, route: str) -> dict:
+    """Per train step: one flash forward and one dkv per layer on the
+    kernels of ``route`` ("wgmma" for bf16, "fma" for fp32), one (FMA) dq
+    per layer; two LayerNorms per layer and the final one; one CE forward
+    and one CE backward."""
     out = dict.fromkeys(_wrappers(), 0)
-    out.update(flash_fwd=layers * steps, flash_dq=layers * steps,
-               flash_dkv=layers * steps,
-               layer_norm=(2 * layers + 1) * steps,
-               softmax_xent_fwd=steps, softmax_xent_bwd=steps)
+    out.update({f"flash_fwd{_sfx(route)}": layers * steps,
+                "flash_dq": layers * steps,
+                f"flash_dkv{_sfx(route)}": layers * steps,
+                "layer_norm": (2 * layers + 1) * steps,
+                "softmax_xent_fwd": steps, "softmax_xent_bwd": steps})
     return out
 
 
@@ -897,7 +992,7 @@ def phase_train_oracle(seed):
     loss_cpu = float(steps[cpu](x, y, TRAIN_LR))
     log(f"  oracle: loss card {loss_gpu:.6f}, CPU plain {loss_cpu:.6f} "
         f"({time.perf_counter() - t0:.1f} s on the CPU); launches {counts}")
-    expect = _expected_counts(cfg.num_layers, 1)
+    expect = _expected_counts(cfg.num_layers, 1, "fma")
     if counts != expect:
         raise AssertionError(f"oracle launches {counts}, expected {expect}")
     if not abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu):
@@ -930,17 +1025,22 @@ def phase_train_oracle(seed):
         f"k_proj biases zero up to "
         f"{max(vanishing.values()):.2e} of the largest gradient")
     return {"loss_card": loss_gpu, "loss_cpu": loss_cpu,
-            "worst_grad_rel": worst, "k_proj_bias_grad_rel": vanishing}
+            "worst_grad_rel": worst, "k_proj_bias_grad_rel": vanishing,
+            "launches": counts}
 
 
 def _train_kernel_class(name: str) -> str:
     n = name.lower()
-    for key, cls in (("softmax_xent_fwd_kernel", "CE fwd kernel"),
+    # first match wins: "fwd_kernel<" is also a substring of the CE and
+    # LayerNorm forward kernels' names, so those come before it
+    for key, cls in (("fwd_sm90_kernel", "flash fwd wgmma kernel"),
+                     ("dkv_sm90_kernel", "flash dkv wgmma kernel"),
+                     ("softmax_xent_fwd_kernel", "CE fwd kernel"),
                      ("softmax_xent_bwd_kernel", "CE bwd kernel"),
+                     ("layer_norm_fwd_kernel", "layer_norm kernel"),
                      ("fwd_kernel<", "flash fwd kernel"),
                      ("dq_kernel", "flash dq kernel"),
-                     ("dkv_kernel", "flash dkv kernel"),
-                     ("layer_norm_fwd_kernel", "layer_norm kernel")):
+                     ("dkv_kernel", "flash dkv kernel")):
         if key in n:
             return cls
     if any(k in n for k in ("gemm", "gemv", "splitk", "cutlass", "sm90_xmma",
@@ -1013,7 +1113,7 @@ def phase_train_full(seed, card, profile, out_dir):
     if not losses[0] - losses[-1] >= 0.5:
         raise AssertionError(f"loss fell by {losses[0] - losses[-1]:.4f} "
                              f"< 0.5 over {TRAIN_STEPS} steps")
-    expect = _expected_counts(L, TRAIN_STEPS)
+    expect = _expected_counts(L, TRAIN_STEPS, "wgmma")
     if counts != expect:
         raise AssertionError(f"launches {counts}, expected {expect}")
     if profile:
@@ -1114,10 +1214,11 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    log(f"build: {built or 'nothing new'} in "
-        f"{time.perf_counter() - t0:.1f} s -> {_build.BUILD_DIR}")
+    build_s = time.perf_counter() - t0
+    log(f"build: {built or 'nothing new'} in {build_s:.1f} s -> "
+        f"{_build.BUILD_DIR}")
 
-    report = {"card": card}
+    report = {"card": card, "build": {"sources": built, "seconds": build_s}}
     rows = {}
     if "kernels" in phases:
         log("kernels:")
@@ -1129,10 +1230,11 @@ def main(argv=None) -> int:
         rows["rms_norm"] = dict(main_t, max_abs_err=worst)
         rows["layer_norm"], report["layer_norm_tolerance_used"] = \
             phase_layer_norm(norms, gen)
-        flash_rows, report["flash_errors"], \
+        flash_rows, report["flash_llama7b"], report["flash_errors"], \
             report["flash_tolerance_used"] = phase_flash(fa, gen)
-        for kind, row in flash_rows.items():
-            rows["flash_" + kind] = row
+        for kind in FLASH_KINDS:
+            rows["flash_" + kind] = flash_rows.pop(kind)
+        report["flash_sdpa_gpt2"] = flash_rows
         torch.cuda.empty_cache()
         ce_rows, report["ce_errors"], report["ce_tolerance_used"] = \
             phase_ce(ce, gen)
@@ -1159,6 +1261,7 @@ def main(argv=None) -> int:
         cell = "gpt2s-bf16-train-b8"
         log(f"train {cell}:")
         oracle = phase_train_oracle(args.seed)
+        by_path["gpt2s-fp32-train-oracle"] = oracle["launches"]
         torch.cuda.empty_cache()
         res = phase_train_full(args.seed, card, args.profile, args.out)
         res["oracle"] = oracle
@@ -1175,10 +1278,14 @@ def main(argv=None) -> int:
                              "paddle_tpu/ops/pallas/cross_entropy.py:48"),
         "flash_fwd": ("flash_attention.cu",
                       "paddle_tpu/ops/pallas/flash_attention.py:158"),
+        "flash_fwd_wgmma": ("flash_attention_sm90.cu",
+                            "paddle_tpu/ops/pallas/flash_attention.py:158"),
         "flash_dq": ("flash_attention.cu",
                      "paddle_tpu/ops/pallas/flash_attention.py:383"),
         "flash_dkv": ("flash_attention.cu",
                       "paddle_tpu/ops/pallas/flash_attention.py:455"),
+        "flash_dkv_wgmma": ("flash_attention_sm90.cu",
+                            "paddle_tpu/ops/pallas/flash_attention.py:455"),
     }
     report["launches_by_path"] = by_path
     kernels = []

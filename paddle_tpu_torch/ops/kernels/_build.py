@@ -86,6 +86,17 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
                          ("flash_dkv", 8))},
         "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
+    "flash_attention_sm90": {
+        # bf16 only: as "flash_attention" without the dtype code
+        **{fn: ([ctypes.c_void_p] * n
+                + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_float, ctypes.c_void_p,
+                                        ctypes.c_void_p],
+                ctypes.c_int)
+           for fn, n in (("flash_fwd_sm90", 5), ("flash_dkv_sm90", 8))},
+        "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    },
 }
 
 # dtype codes shared with csrc/common.cuh (ptk::DType)

@@ -36,8 +36,11 @@
 // load, exact), padded by one word per row so the strided reads do not
 // collide on banks; the products are FMA loops over shared memory
 // (CUDA cores, not tensor cores). D is zero-padded to DP = 64, 128 or 256.
-// Row max and row sums are shuffles across the 16 threads of a row. The
-// later step is mma.sync / wgmma with TMA-fed tiles.
+// Row max and row sums are shuffles across the 16 threads of a row.
+// bf16 calls with head dims up to 128 take the tensor-core forward and dkv
+// of flash_attention_sm90.cu instead (`flash_route`); these kernels serve
+// fp32, wider heads, strides TMA cannot take, and every dq. The dropout
+// hash below is repeated there and must stay identical.
 #include "common.cuh"
 
 #include <math.h>

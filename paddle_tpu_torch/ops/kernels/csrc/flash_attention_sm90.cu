@@ -1,0 +1,731 @@
+// Flash attention forward and dk/dv backward on Hopper's tensor cores
+// (sm_90a): warpgroup MMA (wgmma) fed by TMA through mbarrier rings.
+//
+// Replaces paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel`
+// (launched by `_fwd`) and `_dkv_kernel` (launched by `_bwd_impl`) for
+// bf16 operands; `flash_attention.cu` keeps fp32, head dims above 128 and
+// strides TMA cannot take, and the dq pass. The contract is that file's
+// (its header comment), unchanged:
+//   q, dO, out: [B, Sq, Hq, D];  k, v, dk, dv: [B, Sk, Hk, D], read in
+//   place; lse, delta: [B*Hq, Sq] fp32; GQA by h / (Hq/Hk) without
+//   expanding K/V; causal keeps key j for query i iff j <= i + (Sk - Sq);
+//   s = scale * (q . k) in fp32; p rounded to bf16 before P.V (and before
+//   P^T.dO), ds before its product with Q; rows that see no key give
+//   out = 0 and lse = -inf; dropout by the murmur3 hash of `_keep_block` /
+//   `_mix_seed`, bit for bit, with lse from the undropped p.
+// Here additionally: bf16 only, D a multiple of 8 up to 128 (zero-filled
+// by TMA to DP = 64 or 128), 16-byte aligned operands.
+//
+// What bounds it: at GPT-2's training shape (B*H = 96, S = 1024, D = 64,
+// causal) the forward does 12.9 GFLOP on 50 MB (13 us at 989 TFLOP/s,
+// 15 us at 3.35 TB/s); dkv does twice the flops on about the same bytes,
+// so it is bound by operations (26 us).
+//
+// Design (FlashAttention-3's split, without its ping-pong scheduling or
+// intra-warpgroup overlap): 384 threads = three warpgroups. Warpgroup 0 is
+// the producer: it gives up registers (setmaxnreg 24) and one thread keeps
+// TMA loads in flight through a ring of two stages, each with a "full"
+// barrier (TMA bytes) and an "empty" barrier (256 consumer arrivals).
+// Warpgroups 1 and 2 are consumers (setmaxnreg 240), 64 rows each.
+//
+// forward: grid (q tiles of 128, B*Hq), long causal rows first. Q is
+//   loaded once; K and V tiles of 128 keys stream. Per tile: S = Q.K^T by
+//   SS wgmma m64n128k16; masks only on tiles the diagonal or an edge
+//   cuts; online softmax in registers in the exp2 domain (log2(e) folded
+//   into the scale), row max and sum by shuffles over the 4 lanes sharing
+//   a row; dropout from each accumulator element's (row, col); P packed to
+//   bf16 in registers as the A operand of O += P.V (RS wgmma, V MN-major).
+//   Epilogue: O / l to bf16 straight from registers (rows past Sq not
+//   stored), lse = m ln 2 + log l.
+// dkv: grid (k tiles of 128, B*Hk); each consumer owns 64 keys with dK and
+//   dV in fp32 registers. K and V are loaded once; Q and dO tiles of 64
+//   rows stream over the group's rep q heads from the causal start, and a
+//   producer warp copies lse (+inf past Sq, so p = 0 there) and delta into
+//   the same stage. Per tile: S^T = K.Q^T and dP^T = V.dO^T (SS, one
+//   group); P^T = exp(S^T scale - lse) masked (the plain version's
+//   rounding, not exp2: p is rounded to bf16 next) and dropped;
+//   dS^T = P^T (dP^T_dropped - delta); dV += P^T.dO and dK += dS^T.Q (RS,
+//   B MN-major). Dropout is a template argument of this kernel only: that
+//   took a fifth off its time (fewer registers live) and slowed the
+//   forward. Measured slower and not kept: issuing dV's product while
+//   dS^T is formed, and Q tiles of 32 rows at D = 128 (fewer spills, twice
+//   the tiles). Epilogue: dK x scale and dV to bf16, rows past Sk not
+//   stored.
+#include "common.cuh"
+#include "hopper.cuh"
+
+#include <math.h>
+
+#include <initializer_list>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace hop;
+
+constexpr int kThreads = 384;          // producer + two consumer warpgroups
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct Dims {
+  int B, Sq, Sk, Hq, Hk, D;
+};
+
+struct Dropout {
+  int on;
+  int thresh;          // pre-biased: keep iff (int)(hash ^ 0x80000000) >= thresh
+  float keep_scale;    // fp32(1 / (1 - rate))
+  const int* seed;     // one int32 on the device
+};
+
+// The dropout hash of flash_attention.cu, which it must match bit for bit
+// (chip_smoke.py reads both kernels' keep-masks back against
+// `dropout_keep_mask`).
+__device__ __forceinline__ uint32_t mix_seed(uint32_t seed, uint32_t bh) {
+  uint32_t h = seed ^ (bh * 0x9E3779B1u);
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 7;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 15;
+  return h;
+}
+
+__device__ __forceinline__ bool keep(uint32_t seed_bh, int row, int col,
+                                     int sk, int thresh) {
+  uint32_t h = (static_cast<uint32_t>(row) * static_cast<uint32_t>(sk) +
+                static_cast<uint32_t>(col)) ^ seed_bh;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return static_cast<int>(h ^ 0x80000000u) >= thresh;
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Accumulator element j of n-block i of thread (w, l): row and column
+// inside the warpgroup's 64-row tile (hopper.cuh).
+__device__ __forceinline__ int frag_row(int w, int l, int j) {
+  return 16 * w + (l >> 2) + 8 * (j >> 1);
+}
+__device__ __forceinline__ int frag_col(int l, int i, int j) {
+  return 8 * i + 2 * (l & 3) + (j & 1);
+}
+
+template <int R>
+__device__ __forceinline__ void fence_frags(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int kk = 0; kk < R; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[kk][j])::"memory");
+}
+
+// Store a 64 x DP accumulator of this warpgroup as bf16 rows of a
+// [.., S, H, D] tensor: `base` = &t[b, 0, h, 0], `stride` = H * D, rows
+// from `row0`, at most `rows` of them, columns below D. Columns come in
+// pairs and D is a multiple of 8, so each pair is one 4-byte store.
+template <int DP>
+__device__ __forceinline__ void store_rows(bf16* base, size_t stride,
+                                           const float (&acc)[DP / 2],
+                                           int row0, int rows, int D,
+                                           float mul0, float mul1, int w,
+                                           int l) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row0 + frag_row(w, l, 2 * half);
+    if (r >= rows) continue;
+    const float mul = half ? mul1 : mul0;
+    bf16* p = base + static_cast<size_t>(r) * stride;
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      const int c = frag_col(l, i, 0);
+      if (c < D)
+        *reinterpret_cast<uint32_t*>(p + c) =
+            pack_bf16(acc[4 * i + 2 * half] * mul, acc[4 * i + 2 * half + 1] * mul);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward: grid (nq, B*Hq)
+// ---------------------------------------------------------------------------
+
+template <int DP>
+struct FwdTile {
+  static constexpr int BQ = 128, BK = 128, STAGES = 2, CH = DP / 64;
+  static constexpr int Q_CHUNK = BQ * 128;          // bytes of one 64-col chunk
+  static constexpr int KV_CHUNK = BK * 128;
+  static constexpr int Q_BYTES = CH * Q_CHUNK;
+  static constexpr int KV_BYTES = CH * KV_CHUNK;    // K or V, one stage
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 128;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+                float* __restrict__ lse, Dims dm, float scale_log2,
+                int causal, Dropout dr) {
+  using T = FwdTile<DP>;
+  constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* Ks = Qs + T::Q_BYTES;                     // [ST] x KV_BYTES
+  uint8_t* Vs = Ks + ST * T::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * T::KV_BYTES);
+  uint64_t* k_full = q_full + 1;                     // [ST]
+  uint64_t* v_full = k_full + ST;                    // [ST]
+  uint64_t* kv_empty = v_full + ST;                  // [ST]
+
+  const int nq = (dm.Sq + BQ - 1) / BQ;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x);  // long rows first
+  const int bh = blockIdx.y;
+  const int b = bh / dm.Hq, h = bh % dm.Hq;
+  const int hk = h / (dm.Hq / dm.Hk);
+  const int q0 = qi * BQ;
+  const int offset = dm.Sk - dm.Sq;
+  int nk = (dm.Sk + BK - 1) / BK;
+  if (causal) {
+    const int last = q0 + BQ - 1 + offset;       // tiles past it are dead
+    nk = last < 0 ? 0 : min(nk, last / BK + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(kv_empty + s, 2 * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer ----
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
+      for (int c = 0; c < T::CH; ++c)
+        tma_load_4d(Qs + c * T::Q_CHUNK, &tq, q_full, 64 * c, h, q0, b);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % ST;
+        mbar_wait(kv_empty + s, ((kt / ST) & 1) ^ 1);
+        uint8_t* kd = Ks + s * T::KV_BYTES;
+        uint8_t* vd = Vs + s * T::KV_BYTES;
+        mbar_expect_tx(k_full + s, T::KV_BYTES);
+        for (int c = 0; c < T::CH; ++c)
+          tma_load_4d(kd + c * T::KV_CHUNK, &tk, k_full + s, 64 * c, hk, kt * BK, b);
+        mbar_expect_tx(v_full + s, T::KV_BYTES);
+        for (int c = 0; c < T::CH; ++c)
+          tma_load_4d(vd + c * T::KV_CHUNK, &tv, v_full + s, 64 * c, hk, kt * BK, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x - 128 * wg;
+    const int w = t >> 5, l = t & 31;
+    const int row_base = q0 + 64 * cw;               // first row of this warpgroup
+    const uint32_t seed_bh =
+        dr.on ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+
+    float o[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float lsum[2] = {0.f, 0.f};                      // this thread's share
+    const uint32_t q_addr = smem_u32(Qs) + 64 * cw * 128;
+
+    mbar_wait(q_full, 0);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % ST;
+      const uint32_t par = (kt / ST) & 1;
+      const int k0 = kt * BK;
+      const uint32_t k_addr = smem_u32(Ks + s * T::KV_BYTES);
+      const uint32_t v_addr = smem_u32(Vs + s * T::KV_BYTES);
+
+      // S = Q K^T (fp32, 64 x BK)
+      float sc[BK / 2];
+      mbar_wait(k_full + s, par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        const uint64_t da = desc_sw128(q_addr + (kk >> 2) * T::Q_CHUNK + off, 16, 1024);
+        const uint64_t db = desc_sw128(k_addr + (kk >> 2) * T::KV_CHUNK + off, 16, 1024);
+        wgmma_ss<BK, 0>(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // scale into the exp2 domain; mask where the diagonal or an edge cuts
+      const bool cut = k0 + BK > dm.Sk ||
+                       (causal && k0 + BK - 1 > row_base + offset);
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x = sc[4 * i + j] * scale_log2;
+          if (cut) {
+            const int c = k0 + frag_col(l, i, j);
+            const int r = row_base + frag_row(w, l, j);
+            if (c >= dm.Sk || (causal && c > r + offset)) x = -INFINITY;
+          }
+          sc[4 * i + j] = x;
+        }
+
+      // online softmax over the two rows this thread holds
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mx[j >> 1] = fmaxf(mx[j >> 1], sc[4 * i + j]);
+      float m_safe[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        m_safe[r] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[r] = exp2f(m[r] - m_safe[r]);          // 0 while m was -inf
+        m[r] = m_new;
+      }
+      // p, its row sums, and P (dropped) rounded to bf16 as A fragments of
+      // O += P V
+      float rs[2] = {0.f, 0.f};
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        float pv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = exp2f(sc[4 * i + j] - m_safe[j >> 1]);
+          rs[j >> 1] += p;
+          pv[j] = p;
+          if (dr.on)
+            pv[j] = keep(seed_bh, row_base + frag_row(w, l, j),
+                         k0 + frag_col(l, i, j), dm.Sk, dr.thresh)
+                        ? p * dr.keep_scale
+                        : 0.f;
+        }
+        pa[i >> 1][2 * (i & 1)] = pack_bf16(pv[0], pv[1]);
+        pa[i >> 1][2 * (i & 1) + 1] = pack_bf16(pv[2], pv[3]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) lsum[r] = alpha[r] * lsum[r] + rs[r];
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[4 * i + j] *= alpha[j >> 1];
+
+      // O += P V (V MN-major)
+      mbar_wait(v_full + s, par);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<DP, 1>(o, pa[kk], desc_sw128(v_addr + kk * 2048, T::KV_CHUNK, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_frags(pa);
+      mbar_arrive(kv_empty + s);
+    }
+
+    // epilogue
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float L = quad_sum(lsum[r]);
+      inv[r] = L > 0.f ? 1.f / L : 0.f;
+      const int row = row_base + frag_row(w, l, 2 * r);
+      if ((l & 3) == 0 && row < dm.Sq)
+        lse[static_cast<size_t>(bh) * dm.Sq + row] =
+            L > 0.f ? m[r] * kLn2 + logf(L) : -INFINITY;
+    }
+    const size_t stride = static_cast<size_t>(dm.Hq) * dm.D;
+    bf16* ob = out + (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
+    store_rows<DP>(ob, stride, o, row_base, dm.Sq, dm.D, inv[0], inv[1], w, l);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dkv: grid (nk, B*Hk)
+// ---------------------------------------------------------------------------
+
+template <int DP>
+struct DkvTile {
+  static constexpr int BK = 128, BQ = 64, STAGES = 2, CH = DP / 64;
+  static constexpr int KV_CHUNK = BK * 128;
+  static constexpr int KV_BYTES = CH * KV_CHUNK;    // K or V, loaded once
+  static constexpr int Q_CHUNK = BQ * 128;
+  static constexpr int Q_BYTES = CH * Q_CHUNK;      // Q or dO, one stage
+  static constexpr int STAT_BYTES = 2 * BQ * 4;     // lse, delta
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES +
+                              STAGES * (2 * Q_BYTES + STAT_BYTES) + 128;
+};
+
+template <int DP, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
+dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dk, bf16* __restrict__ dv, Dims dm,
+                float scale, int causal, Dropout dr) {
+  using T = DkvTile<DP>;
+  constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align1024(smem_raw);
+  uint8_t* Vs = Ks + T::KV_BYTES;
+  uint8_t* Qs = Vs + T::KV_BYTES;                    // [ST] x Q_BYTES
+  uint8_t* dOs = Qs + ST * T::Q_BYTES;               // [ST] x Q_BYTES
+  float* stats = reinterpret_cast<float*>(dOs + ST * T::Q_BYTES);  // [ST][2][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + ST * 2 * BQ);
+  uint64_t* full = kv_full + 1;                      // [ST]
+  uint64_t* empty = full + ST;                       // [ST]
+
+  const int kt = blockIdx.x;
+  const int bhk = blockIdx.y;
+  const int b = bhk / dm.Hk, hk = bhk % dm.Hk;
+  const int rep = dm.Hq / dm.Hk;
+  const int k0 = kt * BK;
+  const int offset = dm.Sk - dm.Sq;
+  const int nq = (dm.Sq + BQ - 1) / BQ;
+  // first q tile whose last row sees key k0
+  int qi0 = 0;
+  if (causal) {
+    const int need = k0 - offset - (BQ - 1);
+    qi0 = need <= 0 ? 0 : min(nq, (need + BQ - 1) / BQ);
+  }
+  const int per_head = nq - qi0;
+  const int ntiles = rep * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1 + 32);           // the TMA thread + the stats warp
+      mbar_init(empty + s, 2 * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: thread 0 drives TMA, warp 1 copies lse and delta ----
+    reg_dealloc<kProducerRegs>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * T::KV_BYTES);
+      for (int c = 0; c < T::CH; ++c) {
+        tma_load_4d(Ks + c * T::KV_CHUNK, &tk, kv_full, 64 * c, hk, k0, b);
+        tma_load_4d(Vs + c * T::KV_CHUNK, &tv, kv_full, 64 * c, hk, k0, b);
+      }
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % ST;
+        const int h = hk * rep + it / per_head;
+        const int q0 = (qi0 + it % per_head) * BQ;
+        mbar_wait(empty + s, ((it / ST) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * T::Q_BYTES);
+        for (int c = 0; c < T::CH; ++c) {
+          tma_load_4d(Qs + s * T::Q_BYTES + c * T::Q_CHUNK, &tq, full + s, 64 * c, h, q0, b);
+          tma_load_4d(dOs + s * T::Q_BYTES + c * T::Q_CHUNK, &tdo, full + s, 64 * c, h, q0, b);
+        }
+      }
+    } else if (warp == 1) {
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % ST;
+        const int bh = b * dm.Hq + hk * rep + it / per_head;
+        const int q0 = (qi0 + it % per_head) * BQ;
+        mbar_wait(empty + s, ((it / ST) & 1) ^ 1);
+        float* st = stats + s * 2 * BQ;
+#pragma unroll
+        for (int rr = 0; rr < BQ / 32; ++rr) {
+          const int j = lane + 32 * rr, row = q0 + j;
+          const size_t idx = static_cast<size_t>(bh) * dm.Sq + row;
+          // a row that sees no key (lse = -inf) reads 0; a padded row +inf,
+          // so its p is 0 (as the reference pads lse)
+          const float ls = row < dm.Sq ? lse[idx] : INFINITY;
+          st[j] = ls == -INFINITY ? 0.f : ls;
+          st[BQ + j] = row < dm.Sq ? delta[idx] : 0.f;
+        }
+        mbar_arrive(full + s);
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each ----
+    reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x - 128 * wg;
+    const int w = t >> 5, l = t & 31;
+    const int key_base = k0 + 64 * cw;               // first key of this warpgroup
+    const uint32_t k_addr = smem_u32(Ks) + 64 * cw * 128;
+    const uint32_t v_addr = smem_u32(Vs) + 64 * cw * 128;
+
+    const uint32_t seed = DROP ? static_cast<uint32_t>(dr.seed[0]) : 0u;
+    float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % ST;
+      const uint32_t par = (it / ST) & 1;
+      const int bh = b * dm.Hq + hk * rep + it / per_head;
+      const int q0 = (qi0 + it % per_head) * BQ;
+      // every key of this warpgroup past the tile's last row: nothing to add
+      // (the wait keeps this arrival in round `it`: arriving early could
+      // complete the previous round's release while the other warpgroup
+      // still reads that stage)
+      if (causal && key_base > q0 + BQ - 1 + offset) {
+        mbar_wait(full + s, par);
+        mbar_arrive(empty + s);
+        continue;
+      }
+      const uint32_t q_addr = smem_u32(Qs + s * T::Q_BYTES);
+      const uint32_t do_addr = smem_u32(dOs + s * T::Q_BYTES);
+
+      // S^T = K Q^T and dP^T = V dO^T (fp32, 64 keys x BQ queries)
+      float st[BQ / 2], dpt[BQ / 2];
+      mbar_wait(full + s, par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_ss<BQ, 0>(st, desc_sw128(k_addr + (kk >> 2) * T::KV_CHUNK + off, 16, 1024),
+                        desc_sw128(q_addr + (kk >> 2) * T::Q_CHUNK + off, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_ss<BQ, 0>(dpt, desc_sw128(v_addr + (kk >> 2) * T::KV_CHUNK + off, 16, 1024),
+                        desc_sw128(do_addr + (kk >> 2) * T::Q_CHUNK + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T and dS^T, each rounded to bf16 as the A fragments of its product
+      const float* ls = stats + s * 2 * BQ;
+      const float* dl = ls + BQ;
+      const bool cut = causal && key_base + 63 > q0 + offset;
+      const uint32_t seed_bh = DROP ? mix_seed(seed, bh) : 0u;
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        const int cl = frag_col(l, i, 0);
+        const float2 lsv = *reinterpret_cast<const float2*>(ls + cl);
+        const float2 dlv = *reinterpret_cast<const float2*>(dl + cl);
+        float pv[4], ds[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = key_base + frag_row(w, l, j);
+          const int qr = q0 + cl + (j & 1);
+          // exp(s scale - lse) in the plain version's order of rounding
+          // (product, then difference): an argument off by a few ulp, as
+          // exp2 with log2(e) folded in gives, flips the bf16 rounding of
+          // some large p
+          float p = expf(__fmul_rn(st[4 * i + j], scale) - ((j & 1) ? lsv.y : lsv.x));
+          if (cut && key > qr + offset) p = 0.f;
+          float dp = dpt[4 * i + j];
+          pv[j] = p;
+          if constexpr (DROP) {
+            const bool kp = keep(seed_bh, qr, key, dm.Sk, dr.thresh);
+            pv[j] = kp ? p * dr.keep_scale : 0.f;
+            dp = kp ? dp * dr.keep_scale : 0.f;
+          }
+          ds[j] = p * (dp - ((j & 1) ? dlv.y : dlv.x));
+        }
+        pa[i >> 1][2 * (i & 1)] = pack_bf16(pv[0], pv[1]);
+        pa[i >> 1][2 * (i & 1) + 1] = pack_bf16(pv[2], pv[3]);
+        da[i >> 1][2 * (i & 1)] = pack_bf16(ds[0], ds[1]);
+        da[i >> 1][2 * (i & 1) + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dV += P^T dO, dK += dS^T Q (B operands MN-major)
+      fence_regs(dva);
+      fence_regs(dka);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<DP, 1>(dva, pa[kk], desc_sw128(do_addr + kk * 2048, T::Q_CHUNK, 1024), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<DP, 1>(dka, da[kk], desc_sw128(q_addr + kk * 2048, T::Q_CHUNK, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_frags(pa);
+      fence_frags(da);
+      mbar_arrive(empty + s);
+    }
+
+    const size_t stride = static_cast<size_t>(dm.Hk) * dm.D;
+    const size_t koff = (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+    store_rows<DP>(dk + koff, stride, dka, key_base, dm.Sk, dm.D, scale, scale, w, l);
+    store_rows<DP>(dv + koff, stride, dva, key_base, dm.Sk, dm.D, 1.f, 1.f, w, l);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+// Opt a kernel into more than 48 KB of dynamic shared memory, once per
+// instantiation (no call happens inside a graph capture that follows a
+// warm-up launch).
+template <typename Kern>
+cudaError_t allow_smem(Kern kern, int smem, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  done = err == cudaSuccess;
+  return err;
+}
+
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *out, *dk, *dv;
+  float* lse_out;
+  Dims dm;
+  float scale;
+  int causal;
+  Dropout dr;
+};
+
+// The maps are encoded on every call, from this call's pointers: a tensor
+// map holds its base address, so one cached by shape alone would read
+// another call's tensors.
+template <int DP>
+cudaError_t launch_fwd(const Args& a, cudaStream_t s) {
+  using T = FwdTile<DP>;
+  const Dims& d = a.dm;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = make_map_bshd(&tq, a.q, d.B, d.Sq, d.Hq, d.D, T::BQ)) != cudaSuccess ||
+      (err = make_map_bshd(&tk, a.k, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess ||
+      (err = make_map_bshd(&tv, a.v, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess)
+    return err;
+  static bool smem_set = false;
+  auto kern = fwd_sm90_kernel<DP>;
+  if ((err = allow_smem(kern, T::SMEM, smem_set)) != cudaSuccess) return err;
+  const int nq = (d.Sq + T::BQ - 1) / T::BQ;
+  kern<<<dim3(nq, d.B * d.Hq), kThreads, T::SMEM, s>>>(
+      tq, tk, tv, static_cast<bf16*>(a.out), a.lse_out, d, a.scale * kLog2e,
+      a.causal, a.dr);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dkv(const Args& a, cudaStream_t s) {
+  using T = DkvTile<DP>;
+  const Dims& d = a.dm;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = make_map_bshd(&tq, a.q, d.B, d.Sq, d.Hq, d.D, T::BQ)) != cudaSuccess ||
+      (err = make_map_bshd(&tdo, a.dout, d.B, d.Sq, d.Hq, d.D, T::BQ)) != cudaSuccess ||
+      (err = make_map_bshd(&tk, a.k, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess ||
+      (err = make_map_bshd(&tv, a.v, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess)
+    return err;
+  static bool smem_set[2] = {false, false};          // per dropout off/on
+  const int drop = a.dr.on ? 1 : 0;
+  auto kern = drop ? dkv_sm90_kernel<DP, true> : dkv_sm90_kernel<DP, false>;
+  if ((err = allow_smem(kern, T::SMEM, smem_set[drop])) != cudaSuccess) return err;
+  const int nk = (d.Sk + T::BK - 1) / T::BK;
+  kern<<<dim3(nk, d.B * d.Hk), kThreads, T::SMEM, s>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), d, a.scale, a.causal, a.dr);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// What the wrapper's route already guarantees, checked again at the door.
+bool valid(const Args& a, std::initializer_list<const void*> ptrs) {
+  const Dims& d = a.dm;
+  if (d.Hq <= 0 || d.Hk <= 0 || d.Hq % d.Hk != 0 || d.D < 8 || d.D > 128 ||
+      d.D % 8 != 0 || static_cast<long long>(d.B) * d.Hq > 65535)
+    return false;
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return false;
+  return true;
+}
+
+Args make_args(const void* q, const void* k, const void* v, int B, int Sq,
+               int Sk, int Hq, int Hk, int D, float scale, int causal,
+               int drop_on, int thresh, float keep_scale, const void* seed) {
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dm = Dims{B, Sq, Sk, Hq, Hk, D};
+  a.scale = scale;
+  a.causal = causal;
+  a.dr = Dropout{drop_on, thresh, keep_scale, static_cast<const int*>(seed)};
+  return a;
+}
+
+}  // namespace
+
+// Each entry launches on `stream` without synchronising and returns the
+// launch's CUDA error code (0 on success). bf16 tensors as in the header
+// comment; `seed` is a device pointer to one int32 (NULL without dropout).
+extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
+                              void* out, void* lse, int B, int Sq, int Sk,
+                              int Hq, int Hk, int D, float scale, int causal,
+                              int drop_on, int thresh, float keep_scale,
+                              const void* seed, void* stream) {
+  Args a = make_args(q, k, v, B, Sq, Sk, Hq, Hk, D, scale, causal, drop_on,
+                     thresh, keep_scale, seed);
+  a.out = out;
+  a.lse_out = static_cast<float*>(lse);
+  if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
+  if (!valid(a, {q, k, v, out})) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(D <= 64 ? launch_fwd<64>(a, s) : launch_fwd<128>(a, s));
+}
+
+extern "C" int flash_dkv_sm90(const void* q, const void* k, const void* v,
+                              const void* dout, const void* lse,
+                              const void* delta, void* dk, void* dv, int B,
+                              int Sq, int Sk, int Hq, int Hk, int D,
+                              float scale, int causal, int drop_on,
+                              int thresh, float keep_scale, const void* seed,
+                              void* stream) {
+  Args a = make_args(q, k, v, B, Sq, Sk, Hq, Hk, D, scale, causal, drop_on,
+                     thresh, keep_scale, seed);
+  a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.dk = dk;
+  a.dv = dv;
+  if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
+  if (!valid(a, {q, k, v, dout, dk, dv}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(D <= 64 ? launch_dkv<64>(a, s) : launch_dkv<128>(a, s));
+}

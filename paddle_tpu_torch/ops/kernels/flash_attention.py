@@ -1,5 +1,6 @@
-"""Flash attention: the CUDA kernels ``csrc/flash_attention.cu`` (forward,
-dq, dkv) and their plain PyTorch versions.
+"""Flash attention: the CUDA kernels ``csrc/flash_attention_sm90.cu``
+(forward and dkv on the tensor cores) and ``csrc/flash_attention.cu``
+(forward, dq and dkv as fp32 FMA loops), and their plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: the plain
 functions compute what its Pallas kernels ``_fwd_kernel``,
@@ -24,8 +25,16 @@ layout, and are fed the same ``lse`` and ``delta = rowsum(dO * O)``:
   comes from the undropped probabilities.
 
 ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` pick by device: a CPU
-tensor runs the plain version; a CUDA tensor launches the kernel or
-raises, and each counts its launches (``.launches``).
+tensor runs the plain version; a CUDA tensor launches a kernel or raises.
+Which kernel is ``flash_route``'s choice, a documented split and not a
+fallback: bf16 operands with a head dim that is a multiple of 8 up to 128
+and 16-byte aligned take the wgmma kernels (forward and dkv; TMA needs
+those strides and alignments), everything else (fp32, whose contract is
+exact fp32 where the tensor cores would give TF32; head dims above 128)
+the FMA kernels. dq always runs the FMA kernel. Each kernel counts its
+own launches: ``flash_fwd.launches``, ``flash_dq.launches`` and
+``flash_dkv.launches`` the FMA kernels', ``flash_fwd.wgmma.launches`` and
+``flash_dkv.wgmma.launches`` the wgmma kernels'.
 ``flash_attention_ext`` is the differentiable entry (a
 ``torch.autograd.Function`` saving ``(q, k, v, out, lse)`` like
 ``_fa_fwd``/``_fa_bwd``). An additive bias and segment ids are not
@@ -34,7 +43,7 @@ ported yet: they raise ``NotImplementedError``.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,9 +52,11 @@ from . import _build
 
 __all__ = ["flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_plain",
            "flash_dq_plain", "flash_dkv_plain", "flash_attention_ext",
-           "dropout_keep_mask", "dropout_threshold", "MAX_HEAD_DIM"]
+           "flash_route", "dropout_keep_mask", "dropout_threshold",
+           "MAX_HEAD_DIM", "WGMMA_MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
+WGMMA_MAX_HEAD_DIM = 128
 _DTYPE_CODES = _build.DTYPE_CODES
 _SIGN = -(1 << 31)                    # int32 0x80000000
 
@@ -273,6 +284,26 @@ def _check(q, k, v, *more) -> Tuple[int, int, int, int, int, int]:
     return b, sq, sk, hq, hk, d
 
 
+def flash_route(dtype: torch.dtype, head_dim: int,
+                addresses: Sequence[int] = ()) -> str:
+    """The kernel a CUDA call of ``flash_fwd`` / ``flash_dkv`` launches:
+    ``"wgmma"`` (``csrc/flash_attention_sm90.cu``) for bf16 with
+    ``head_dim`` a multiple of 8 up to ``WGMMA_MAX_HEAD_DIM`` (so the
+    head stride ``D * 2`` and row stride ``H * D * 2`` bytes are multiples
+    of 16, as TMA requires) and every operand address 16-byte aligned;
+    ``"fma"`` (``csrc/flash_attention.cu``) otherwise."""
+    if (dtype == torch.bfloat16 and head_dim % 8 == 0
+            and 0 < head_dim <= WGMMA_MAX_HEAD_DIM
+            and all(a % 16 == 0 for a in addresses)):
+        return "wgmma"
+    return "fma"
+
+
+def _route(*tensors: torch.Tensor) -> str:
+    q = tensors[0]
+    return flash_route(q.dtype, q.shape[-1], [t.data_ptr() for t in tensors])
+
+
 def _check_stat(name: str, t: torch.Tensor, b: int, hq: int, sq: int):
     if (t.dtype != torch.float32 or tuple(t.shape) != (b, hq, sq)
             or not t.is_contiguous()):
@@ -296,22 +327,35 @@ def _drop_args(rate: float, seed: Optional[torch.Tensor], like):
             _build.ptr(seed))
 
 
-def _common_args(dims, scale, causal, rate, seed, q):
+def _common_args(dims, scale, causal, rate, seed, q, route="fma"):
+    """The scalar arguments of a C entry; the wgmma entries take no dtype
+    code (bf16 only)."""
+    dtype = () if route == "wgmma" else (_DTYPE_CODES[q.dtype],)
     return (*dims, float(scale), int(bool(causal)),
-            *_drop_args(rate, seed, q), _DTYPE_CODES[q.dtype],
-            _build.stream(q))
+            *_drop_args(rate, seed, q), *dtype, _build.stream(q))
 
 
-def _fwd_launch(q, k, v, causal, scale, rate, seed):
+def _fwd_launch(q, k, v, causal, scale, rate, seed, route=None):
+    """``route`` defaults to ``flash_route``'s choice; the on-card checks
+    also name "fma" for bf16, to hold and time that kernel on the main
+    path's inputs."""
     dims = _check(q, k, v)
     b, sq, _, hq, _, _ = dims
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    args = _common_args(dims, scale, causal, rate, seed, q)
-    lib = _build.load("flash_attention")
-    flash_fwd.launches += 1
-    rc = lib.flash_fwd(*map(_build.ptr, (q, k, v, out, lse)), *args)
-    _build.check(lib, rc, "flash_fwd")
+    tensors = (q, k, v, out, lse)
+    route = route or _route(q, k, v, out)
+    args = _common_args(dims, scale, causal, rate, seed, q, route)
+    if route == "wgmma":
+        lib = _build.load("flash_attention_sm90")
+        flash_fwd.wgmma.launches += 1
+        rc = lib.flash_fwd_sm90(*map(_build.ptr, tensors), *args)
+        _build.check(lib, rc, "flash_fwd_sm90")
+    else:
+        lib = _build.load("flash_attention")
+        flash_fwd.launches += 1
+        rc = lib.flash_fwd(*map(_build.ptr, tensors), *args)
+        _build.check(lib, rc, "flash_fwd")
     return out, lse
 
 
@@ -329,26 +373,36 @@ def _dq_launch(q, k, v, do, lse, delta, causal, scale, rate, seed):
     return dq
 
 
-def _dkv_launch(q, k, v, do, lse, delta, causal, scale, rate, seed):
+def _dkv_launch(q, k, v, do, lse, delta, causal, scale, rate, seed,
+                route=None):
+    """``route`` as in ``_fwd_launch``."""
     dims = _check(q, k, v, do)
     b, sq, _, hq, _, _ = dims
     _check_stat("lse", lse, b, hq, sq)
     _check_stat("delta", delta, b, hq, sq)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    args = _common_args(dims, scale, causal, rate, seed, q)
-    lib = _build.load("flash_attention")
-    flash_dkv.launches += 1
-    rc = lib.flash_dkv(*map(_build.ptr, (q, k, v, do, lse, delta, dk, dv)),
-                       *args)
-    _build.check(lib, rc, "flash_dkv")
+    tensors = (q, k, v, do, lse, delta, dk, dv)
+    route = route or _route(q, k, v, do, dk, dv)
+    args = _common_args(dims, scale, causal, rate, seed, q, route)
+    if route == "wgmma":
+        lib = _build.load("flash_attention_sm90")
+        flash_dkv.wgmma.launches += 1
+        rc = lib.flash_dkv_sm90(*map(_build.ptr, tensors), *args)
+        _build.check(lib, rc, "flash_dkv_sm90")
+    else:
+        lib = _build.load("flash_attention")
+        flash_dkv.launches += 1
+        rc = lib.flash_dkv(*map(_build.ptr, tensors), *args)
+        _build.check(lib, rc, "flash_dkv")
     return dk, dv
 
 
 def flash_fwd(q, k, v, causal: bool, scale: float, rate: float = 0.0,
               seed: Optional[torch.Tensor] = None):
-    """``(out, lse)``: the forward kernel on the card (counted in
-    ``flash_fwd.launches``), ``flash_fwd_plain`` on the CPU."""
+    """``(out, lse)``: a forward kernel on the card, by ``flash_route``
+    (counted in ``flash_fwd.wgmma.launches`` or ``flash_fwd.launches``),
+    ``flash_fwd_plain`` on the CPU."""
     return _build.dispatch(flash_fwd_plain, _fwd_launch, q, k, v, causal,
                            scale, rate, seed)
 
@@ -363,15 +417,26 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
 
 def flash_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
               rate: float = 0.0, seed: Optional[torch.Tensor] = None):
-    """(dk, dv): the dkv kernel on the card (``flash_dkv.launches``),
+    """(dk, dv): a dkv kernel on the card, by ``flash_route``
+    (``flash_dkv.wgmma.launches`` or ``flash_dkv.launches``),
     ``flash_dkv_plain`` on the CPU."""
     return _build.dispatch(flash_dkv_plain, _dkv_launch, q, k, v, do, lse,
                            delta, causal, scale, rate, seed)
 
 
+class KernelCount:
+    """The launch count (``.launches``) of the second kernel behind a
+    wrapper that routes between two."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+
 flash_fwd.launches = 0
 flash_dq.launches = 0
 flash_dkv.launches = 0
+flash_fwd.wgmma = KernelCount()
+flash_dkv.wgmma = KernelCount()
 
 
 class _FlashAttentionFunction(torch.autograd.Function):

@@ -13,6 +13,7 @@ Pallas kernels to XLA (tiles sum in another order); gradients at 1e-4
 entry-wise check to account: the kernel's rounding passes it, planted
 faults do not.
 """
+import ctypes
 import importlib.util
 import math
 import os
@@ -292,3 +293,160 @@ def test_llama_forward_matches_reference():
     np.testing.assert_allclose(got.detach().numpy(), ref, rtol=0, atol=1e-4)
     got.sum().backward()             # differentiable through the kernels'
     assert tm.model.layers[0].self_attn.q_proj.weight.grad is not None
+
+
+# ---------------------------------------------------------------------------
+# the two kernel routes: wgmma (csrc/flash_attention_sm90.cu) and FMA
+# (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+def _operands(dtype, d, hq, hk, misaligned):
+    """q, k, v of [1, 8, H, d]; ``misaligned`` starts each one element
+    past a 16-byte boundary (contiguous all the same)."""
+    def mk(h):
+        n = 8 * h * d
+        flat = torch.zeros(n + 1, dtype=dtype)
+        return (flat[1:] if misaligned else flat[:n]).view(1, 8, h, d)
+    return mk(hq), mk(hk), mk(hk)
+
+
+@pytest.mark.parametrize("gqa", [(4, 4), (4, 2)], ids=lambda g: f"H{g[0]}/{g[1]}")
+@pytest.mark.parametrize("misaligned", [False, True],
+                         ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("d", [8, 36, 64, 96, 128, 160, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_flash_route(dtype, d, misaligned, gqa):
+    """bf16 with a head dim that is a multiple of 8 (so the head and row
+    strides are multiples of 16 bytes) up to 128, 16-byte aligned, takes
+    the wgmma kernels; fp32 (exact fp32, not TF32), head dims above 128,
+    strides and addresses TMA cannot take the FMA kernels."""
+    q, k, v = _operands(dtype, d, *gqa, misaligned)
+    want = ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
+            and not misaligned else "fma")
+    assert tfa._route(q, k, v) == want
+    assert tfa.flash_route(dtype, d, [t.data_ptr() for t in (q, k, v)]) \
+        == want
+    if dtype == torch.float32 or d > tfa.WGMMA_MAX_HEAD_DIM:
+        assert want == "fma"
+
+
+def _fake_library(name):
+    """A stand-in for the built library: each C entry is a ctypes function
+    of the declared signature (so the arguments are converted exactly as
+    for the real one) that records its call and returns 0."""
+    lib = type("Lib", (), {})()
+    lib.calls = []
+    for fn, (argtypes, restype) in _build._SIGNATURES[name].items():
+        def record(*args, fn=fn):
+            lib.calls.append((fn, args))
+            return 0
+        setattr(lib, fn, ctypes.CFUNCTYPE(restype, *argtypes)(record))
+    return lib
+
+
+@pytest.mark.parametrize("dtype,d,misaligned,entry", [
+    (torch.bfloat16, 64, False, "sm90"), (torch.bfloat16, 96, False, "sm90"),
+    (torch.bfloat16, 64, True, "fma"), (torch.bfloat16, 160, False, "fma"),
+    (torch.float32, 64, False, "fma")])
+def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
+                                                         d, misaligned,
+                                                         entry):
+    """Each launch takes its route's C entry with the arity and types of
+    ``_build._SIGNATURES`` (the wgmma entries without a dtype code) and
+    counts on its own kernel's counter; dq stays on the FMA kernel."""
+    libs = {n: _fake_library(n)
+            for n in ("flash_attention", "flash_attention_sm90")}
+    monkeypatch.setattr(_build, "load", libs.__getitem__)
+    monkeypatch.setattr(_build, "stream", lambda t: ctypes.c_void_p(0))
+    q, k, v = _operands(dtype, d, 4, 2, misaligned)
+    do = q.clone() if not misaligned else q
+    lse = torch.zeros(1, 4, 8)
+    counters = (tfa.flash_fwd, tfa.flash_fwd.wgmma, tfa.flash_dq,
+                tfa.flash_dkv, tfa.flash_dkv.wgmma)
+    before = [c.launches for c in counters]
+    tfa._fwd_launch(q, k, v, True, 0.125, 0.0, None)
+    tfa._dq_launch(q, k, v, do, lse, lse, True, 0.125, 0.0, None)
+    tfa._dkv_launch(q, k, v, do, lse, lse, True, 0.125, 0.0, None)
+    moved = [c.launches - b for c, b in zip(counters, before)]
+    sm90 = [fn for fn, _ in libs["flash_attention_sm90"].calls]
+    fma = [fn for fn, args in libs["flash_attention"].calls]
+    if entry == "sm90":
+        assert moved == [0, 1, 1, 0, 1]
+        assert (sm90, fma) == (["flash_fwd_sm90", "flash_dkv_sm90"],
+                               ["flash_dq"])
+    else:
+        assert moved == [1, 0, 1, 1, 0]
+        assert (sm90, fma) == ([], ["flash_fwd", "flash_dq", "flash_dkv"])
+        codes = {args[-2] for _, args in libs["flash_attention"].calls}
+        assert codes == {_build.DTYPE_CODES[dtype]}
+
+
+def test_cpu_call_counts_no_launch_on_either_route():
+    counters = (tfa.flash_fwd, tfa.flash_fwd.wgmma, tfa.flash_dq,
+                tfa.flash_dkv, tfa.flash_dkv.wgmma)
+    before = [c.launches for c in counters]
+    q, k, v, _ = (t.bfloat16().requires_grad_()
+                  for t in _t(*_inputs(CASES[1])))
+    TF.scaled_dot_product_attention(q, k, v, is_causal=True).float().sum() \
+        .backward()
+    assert [c.launches for c in counters] == before
+
+
+def _wgmma_fwd(q, k, v, scale, causal, block=128, ln2=True):
+    """The wgmma forward's arithmetic, in torch: scores times
+    fp32(scale * log2 e) (the exp2 domain), k tiles of ``block`` keys,
+    p = exp2(x - m) rounded to bf16 against the tile's running max before
+    P V, the row sum from the unrounded p, O / l as O * (1 / l), and
+    lse = m ln 2 + log l (``ln2`` False leaves the max in log2 units: a
+    planted fault)."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    c = np.float32(np.float32(scale) * np.float32(math.log2(math.e)))
+    x = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * float(c)
+    if causal:
+        hidden = (torch.arange(sk)[None, :]
+                  > torch.arange(sq)[:, None] + (sk - sq))
+        x = x.masked_fill(hidden, float("-inf"))
+    vt = v.float().permute(0, 2, 1, 3)
+    m = torch.full((b, h, sq, 1), float("-inf"))
+    l = torch.zeros(b, h, sq, 1)
+    acc = torch.zeros(b, h, sq, q.shape[-1])
+    for k0 in range(0, sk, block):
+        xt = x[..., k0:k0 + block]
+        m_new = torch.maximum(m, xt.amax(-1, keepdim=True))
+        m_safe = torch.where(m_new == float("-inf"), 0.0, m_new)
+        alpha = torch.exp2(m - m_safe)
+        p = torch.exp2(xt - m_safe)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vt[:, :, k0:k0 + block]
+        m = m_new
+    inv = torch.where(l > 0, 1.0 / torch.where(l > 0, l, 1.0), 0.0)
+    out = (acc * inv).permute(0, 2, 1, 3).to(q.dtype)
+    lse = torch.where(l > 0, (m * math.log(2) if ln2 else m)
+                      + torch.log(torch.where(l > 0, l, 1.0)),
+                      float("-inf"))
+    return out, lse[..., 0]
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(512, 512, True), (333, 200, True),
+                                          (200, 333, False)])
+def test_wgmma_tiling_passes_the_chip_check(sq, sk, causal):
+    """The wgmma forward's tiling (128-key tiles, exp2 domain, p rounded
+    to bf16 against each tile's running max) stays inside chip_smoke.py's
+    unchanged bf16 FLASH_RTOL and LSE_RTOL against flash_fwd_plain, rows
+    that see no key included; an lse left in log2 units fails."""
+    cs = _chip_smoke()
+    rng = np.random.RandomState(11)
+    mk = lambda s: torch.from_numpy(rng.standard_normal(  # noqa: E731
+        (1, s, 2, 64)).astype(np.float32)).bfloat16()
+    q, k, v = mk(sq), mk(sk), mk(sk)
+    scale = 0.125
+    out_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal, scale)
+    out, lse = _wgmma_fwd(q, k, v, scale, causal)
+    cs.check_close("out", out, out_ref, cs.FLASH_RTOL["fwd"][torch.bfloat16],
+                   quiet=True)
+    cs.check_close("lse", lse, lse_ref, cs.LSE_RTOL, quiet=True)
+    _, lse_bad = _wgmma_fwd(q, k, v, scale, causal, ln2=False)
+    with pytest.raises(AssertionError):
+        cs.check_close("lse", lse_bad, lse_ref, cs.LSE_RTOL, quiet=True)
