@@ -9,10 +9,11 @@ Phases, each fatal on failure:
 1. card: the ``nvidia-smi`` name and power limit; TF32 off for matmuls
    and cuDNN, so fp32 means fp32.
 2. build: every kernel under ``paddle_tpu_torch/ops/kernels/csrc`` with
-   nvcc for sm_90a (one nvcc per source, in parallel), timed.
+   nvcc for sm_90a (one nvcc per source, in parallel), timed; ptxas's
+   registers, spills and warnings for each tensor-core flash kernel.
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (RMSNorm; LayerNorm; flash-attention
-   forward and dkv on both routes, wgmma and FMA, and dq, at GPT-2's and
+   forward, dq and dkv on both routes, wgmma and FMA, at GPT-2's and
    Llama-2 7B's training shapes, GQA, padded lengths, rows that see no
    key, a single query, head dims of 32, 96 and 160, and dropout (also at
    D = 128), whose keep-mask must match exactly in fp32 and bf16; the softmax
@@ -47,7 +48,7 @@ Phases, each fatal on failure:
       1024, batch 8, dropout 0, bf16 parameters, fp32 AdamW moments,
       AdamW(3e-4, weight decay 0.01)), 20 steps on one batch: the loss
       must fall by at least 0.5 and every step must launch exactly 12
-      wgmma flash forwards, 12 (FMA) dq, 12 wgmma dkv, 25 LayerNorm, one
+      wgmma flash forwards, 12 wgmma dq, 12 wgmma dkv, 25 LayerNorm, one
       CE forward and one CE backward kernel. Reports tokens/s, ms/step, peak memory and MFU
       (bench.py's FLOP count over 989 TFLOP/s). With ``--profile``, two
       more steps go under ``torch.profiler`` (one warm-up, one
@@ -63,6 +64,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -340,7 +342,7 @@ def flash_bound(kind, b, sq, sk, hq, hk, d, dtype, causal):
 
 # (name, B, Sq, Sk, Hq, Hk, D, dtype, causal, dropout rate). bf16 with a
 # head dim that is a multiple of 8 up to 128 takes the wgmma kernels
-# (forward, dkv); fp32 and wider heads the FMA kernels (flash_route)
+# (forward, dq, dkv); fp32 and wider heads the FMA kernels (flash_route)
 FLASH_CASES = [
     ("gpt2-train", 8, 1024, 1024, 12, 12, 64, torch.bfloat16, True, 0.0),
     ("llama7b", 1, 2048, 2048, 32, 32, 128, torch.bfloat16, True, 0.0),
@@ -391,8 +393,8 @@ def _sfx(route: str) -> str:
 def _flash_case(fa, gen, case):
     """One FLASH_CASES entry: the public wrappers must launch exactly the
     kernels of ``flash_route``'s choice, and each result is held against
-    its plain version; on a wgmma case the FMA forward and dkv are held
-    too, on the same inputs. Returns (max |kernel - plain| by kernel,
+    its plain version; on a wgmma case the FMA forward, dq and dkv are
+    held too, on the same inputs. Returns (max |kernel - plain| by kernel,
     the share of its tolerance each check used)."""
     name, b, sq, sk, hq, hk, d, dtype, causal, rate = case
     q, k, v, do = _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype)
@@ -410,10 +412,11 @@ def _flash_case(fa, gen, case):
     tol = FLASH_RTOL["bwd"][dtype]
     e, u = {}, {}
 
-    def hold(sfx, out, lse, dk, dv):
+    def hold(sfx, out, lse, dq, dk, dv):
         e["fwd" + sfx], u["out" + sfx] = check_close(
             "out" + sfx, out, outp, FLASH_RTOL["fwd"][dtype])
         _, u["lse" + sfx] = check_close("lse" + sfx, lse, lsep, LSE_RTOL)
+        e["dq" + sfx], u["dq" + sfx] = check_close("dq" + sfx, dq, dqp, tol)
         dk_err, u["dk" + sfx] = check_close("dk" + sfx, dk, dkp, tol)
         dv_err, u["dv" + sfx] = check_close("dv" + sfx, dv, dvp, tol)
         e["dkv" + sfx] = max(dk_err, dv_err)
@@ -425,18 +428,19 @@ def _flash_case(fa, gen, case):
                           seed)
     moved = {n: c - before[n] for n, c in _counts().items()
              if c != before[n]}
-    expect = {f"flash_fwd{_sfx(route)}": 1, "flash_dq": 1,
-              f"flash_dkv{_sfx(route)}": 1}
+    expect = {f"flash_{kind}{_sfx(route)}": 1 for kind in ("fwd", "dq",
+                                                           "dkv")}
     if moved != expect:
         raise AssertionError(f"{name}: launches {moved}, expected {expect}")
-    hold(_sfx(route), out, lse, dk, dv)
-    e["dq"], u["dq"] = check_close("dq", dq, dqp, tol)
+    hold(_sfx(route), out, lse, dq, dk, dv)
     if route == "wgmma":
         out, lse = fa._fwd_launch(q, k, v, causal, scale, rate, seed,
                                   route="fma")
+        dq = fa._dq_launch(q, k, v, do, lsep, delta, causal, scale, rate,
+                           seed, route="fma")
         dk, dv = fa._dkv_launch(q, k, v, do, lsep, delta, causal, scale,
                                 rate, seed, route="fma")
-        hold("", out, lse, dk, dv)
+        hold("", out, lse, dq, dk, dv)
     return e, u
 
 
@@ -474,7 +478,10 @@ def _flash_timings(fa, gen, case, kinds):
         "fwd": lambda: fa._fwd_launch(q, k, v, causal, scale, 0.0, None,
                                       route="fma"),
         "fwd_wgmma": lambda: fa.flash_fwd(q, k, v, causal, scale),
-        "dq": lambda: fa.flash_dq(q, k, v, do, lse, delta, causal, scale),
+        "dq": lambda: fa._dq_launch(q, k, v, do, lse, delta, causal, scale,
+                                    0.0, None, route="fma"),
+        "dq_wgmma": lambda: fa.flash_dq(q, k, v, do, lse, delta, causal,
+                                        scale),
         "dkv": lambda: fa._dkv_launch(q, k, v, do, lse, delta, causal, scale,
                                       0.0, None, route="fma"),
         "dkv_wgmma": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal,
@@ -510,13 +517,13 @@ def _flash_timings(fa, gen, case, kinds):
     return rows
 
 
-FLASH_KINDS = ("fwd", "fwd_wgmma", "dq", "dkv", "dkv_wgmma")
+FLASH_KINDS = ("fwd", "fwd_wgmma", "dq", "dq_wgmma", "dkv", "dkv_wgmma")
 
 
 def phase_flash(fa, gen):
     """Flash kernels vs their plain versions on every case of FLASH_CASES
     (each on the route ``flash_route`` picks, and on a wgmma case the FMA
-    forward and dkv as well), the dropout keep-mask read back exactly in
+    kernels as well), the dropout keep-mask read back exactly in
     fp32 (FMA) and bf16 (wgmma), then every kernel timed at GPT-2's
     training shape and Llama-2 7B's. Returns (timing rows at GPT-2's
     shape, timing rows at Llama's, max |kernel - plain| by case and
@@ -937,7 +944,8 @@ def _wrappers():
             "softmax_xent_fwd": ce.softmax_xent_fwd,
             "softmax_xent_bwd": ce.softmax_xent_bwd,
             "flash_fwd": fa.flash_fwd, "flash_fwd_wgmma": fa.flash_fwd.wgmma,
-            "flash_dq": fa.flash_dq, "flash_dkv": fa.flash_dkv,
+            "flash_dq": fa.flash_dq, "flash_dq_wgmma": fa.flash_dq.wgmma,
+            "flash_dkv": fa.flash_dkv,
             "flash_dkv_wgmma": fa.flash_dkv.wgmma}
 
 
@@ -951,13 +959,13 @@ def _reset_counts():
 
 
 def _expected_counts(layers: int, steps: int, route: str) -> dict:
-    """Per train step: one flash forward and one dkv per layer on the
-    kernels of ``route`` ("wgmma" for bf16, "fma" for fp32), one (FMA) dq
-    per layer; two LayerNorms per layer and the final one; one CE forward
-    and one CE backward."""
+    """Per train step: one flash forward, one dq and one dkv per layer on
+    the kernels of ``route`` ("wgmma" for bf16, "fma" for fp32); two
+    LayerNorms per layer and the final one; one CE forward and one CE
+    backward."""
     out = dict.fromkeys(_wrappers(), 0)
     out.update({f"flash_fwd{_sfx(route)}": layers * steps,
-                "flash_dq": layers * steps,
+                f"flash_dq{_sfx(route)}": layers * steps,
                 f"flash_dkv{_sfx(route)}": layers * steps,
                 "layer_norm": (2 * layers + 1) * steps,
                 "softmax_xent_fwd": steps, "softmax_xent_bwd": steps})
@@ -1034,6 +1042,7 @@ def _train_kernel_class(name: str) -> str:
     # first match wins: "fwd_kernel<" is also a substring of the CE and
     # LayerNorm forward kernels' names, so those come before it
     for key, cls in (("fwd_sm90_kernel", "flash fwd wgmma kernel"),
+                     ("dq_sm90_kernel", "flash dq wgmma kernel"),
                      ("dkv_sm90_kernel", "flash dkv wgmma kernel"),
                      ("softmax_xent_fwd_kernel", "CE fwd kernel"),
                      ("softmax_xent_bwd_kernel", "CE bwd kernel"),
@@ -1180,6 +1189,62 @@ def phase_train_profile(step, x, y, out_dir):
     return out
 
 
+def _short_kernel(mangled: str) -> str:
+    """``dq_sm90_kernel<64,0>`` for a mangled wgmma kernel name: the head
+    dim it is built for and dropout off or on."""
+    m = re.search(r"\d+([a-z]+_sm90_kernel)I((?:L[ib]\d+E)+)", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"(\d+)E", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_report(text: str, sass: str = "") -> dict:
+    """Per kernel entry of an ``-Xptxas -v`` build log: registers and
+    spill bytes (under ``_short_kernel``'s name), and with the library's
+    SASS (``cuobjdump -sass``) its HGMMA instructions and the wgmma waits
+    (``WARPGROUP.DEPBAR``) among them: one wait per HGMMA means ptxas
+    serialised the products. Also every warning line, names shortened."""
+    kernels, warnings, cur = [], [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"kernel": _short_kernel(m.group(1))}
+            kernels.append(cur)
+        elif "warning" in line:
+            warnings.append(re.sub(
+                r"_Z\w+", lambda w: _short_kernel(w.group(0)), line.strip()))
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    code = {}
+    for part in sass.split("Function : ")[1:]:
+        name, body = part.split(None, 1)
+        code[_short_kernel(name)] = (body.count("HGMMA"),
+                             body.count("WARPGROUP.DEPBAR"))
+    for row in kernels:
+        if row["kernel"] in code:
+            row["hgmma"], row["wgmma_waits"] = code[row["kernel"]]
+    return {"kernels": kernels, "warnings": warnings}
+
+
+def sass_of(lib) -> str:
+    """``cuobjdump -sass`` of a built library (the toolkit's, beside
+    nvcc), or "" where it cannot be read."""
+    from paddle_tpu_torch.ops.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    try:
+        return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return ""
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1217,8 +1282,23 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     log(f"build: {built or 'nothing new'} in {build_s:.1f} s -> "
         f"{_build.BUILD_DIR}")
+    sm90_log = _build.BUILD_LOGS.get("flash_attention_sm90", "")
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "ptxas_flash_attention_sm90.txt"),
+              "w") as f:
+        f.write(sm90_log)
+    ptxas = ptxas_report(sm90_log, sass_of(
+        _build.library_path("flash_attention_sm90")))
+    for row in ptxas["kernels"]:
+        log(f"  ptxas {row['kernel']}: {row.get('registers')} registers, "
+            f"spill stores {row.get('spill_stores')} B, loads "
+            f"{row.get('spill_loads')} B; SASS {row.get('hgmma')} HGMMA, "
+            f"{row.get('wgmma_waits')} wgmma waits")
+    for line in ptxas["warnings"]:
+        log(f"  ptxas {line}")
 
-    report = {"card": card, "build": {"sources": built, "seconds": build_s}}
+    report = {"card": card, "build": {"sources": built, "seconds": build_s,
+                                      "ptxas_sm90": ptxas}}
     rows = {}
     if "kernels" in phases:
         log("kernels:")
@@ -1282,6 +1362,8 @@ def main(argv=None) -> int:
                             "paddle_tpu/ops/pallas/flash_attention.py:158"),
         "flash_dq": ("flash_attention.cu",
                      "paddle_tpu/ops/pallas/flash_attention.py:383"),
+        "flash_dq_wgmma": ("flash_attention_sm90.cu",
+                           "paddle_tpu/ops/pallas/flash_attention.py:383"),
         "flash_dkv": ("flash_attention.cu",
                       "paddle_tpu/ops/pallas/flash_attention.py:455"),
         "flash_dkv_wgmma": ("flash_attention_sm90.cu",

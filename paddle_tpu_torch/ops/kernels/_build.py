@@ -4,12 +4,15 @@
 Each ``csrc/<name>.cu`` is compiled on its own, at first use, by
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v
+         -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
 
-and loaded with ``ctypes``. The sources export plain C functions: every
-pointer and the CUDA stream cross as ``ctypes.c_void_p`` (a bare Python
-int would be cut to 32 bits), and each launch returns the
-``cudaGetLastError()`` code, which ``check`` turns into an exception.
+and loaded with ``ctypes``; ``BUILD_LOGS[name]`` keeps what the compiler
+printed (ptxas's registers, spills and warnings per kernel). The sources
+export plain C functions: every pointer and the CUDA stream cross as
+``ctypes.c_void_p`` (a bare Python int would be cut to 32 bits), and each
+launch returns the ``cudaGetLastError()`` code, which ``check`` turns
+into an exception.
 No PyTorch header is compiled, so a build takes seconds, not minutes.
 
 The library name carries a hash of the sources, so an edited kernel is
@@ -30,17 +33,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "KernelBuildError", "KernelLaunchError",
-           "DTYPE_CODES", "sources", "nvcc_path", "nvcc_command",
-           "library_path", "load", "build_all", "check", "ptr", "stream",
-           "dispatch"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "BUILD_LOGS", "KernelBuildError",
+           "KernelLaunchError", "DTYPE_CODES", "sources", "nvcc_path",
+           "nvcc_command", "library_path", "load", "build_all", "check",
+           "ptr", "stream", "dispatch"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/kernels (listed in .gitignore)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signature of every exported entry point, per source
 _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
@@ -94,7 +97,8 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
                                         ctypes.c_float, ctypes.c_void_p,
                                         ctypes.c_void_p],
                 ctypes.c_int)
-           for fn, n in (("flash_fwd_sm90", 5), ("flash_dkv_sm90", 8))},
+           for fn, n in (("flash_fwd_sm90", 5), ("flash_dq_sm90", 7),
+                         ("flash_dkv_sm90", 8))},
         "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
 }
@@ -104,6 +108,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# compiler output of each source built by this process
+BUILD_LOGS: Dict[str, str] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -176,6 +182,7 @@ def _finish(name: str, started) -> None:
             f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n"
             f"{out}")
     os.replace(tmp, lib)      # atomic: a concurrent loader sees all or none
+    BUILD_LOGS[name] = out
 
 
 def _bind(name: str) -> ctypes.CDLL:

@@ -37,48 +37,20 @@
 // collide on banks; the products are FMA loops over shared memory
 // (CUDA cores, not tensor cores). D is zero-padded to DP = 64, 128 or 256.
 // Row max and row sums are shuffles across the 16 threads of a row.
-// bf16 calls with head dims up to 128 take the tensor-core forward and dkv
-// of flash_attention_sm90.cu instead (`flash_route`); these kernels serve
-// fp32, wider heads, strides TMA cannot take, and every dq. The dropout
-// hash below is repeated there and must stay identical.
+// bf16 calls with head dims up to 128 take the tensor-core forward, dq
+// and dkv of flash_attention_sm90.cu instead (`flash_route`); these
+// kernels serve fp32, wider heads and strides TMA cannot take. Both
+// sources share the dropout hash of flash_common.cuh.
 #include "common.cuh"
+#include "flash_common.cuh"
 
 #include <math.h>
 
 namespace {
 
+using namespace ptk;
+
 constexpr int kThreads = 256;
-
-struct Dims {
-  int B, Sq, Sk, Hq, Hk, D;
-};
-
-struct Dropout {
-  int on;
-  int thresh;          // pre-biased: keep iff (int)(hash ^ 0x80000000) >= thresh
-  float keep_scale;    // fp32(1 / (1 - rate))
-  const int* seed;     // one int32 on the device
-};
-
-__device__ __forceinline__ uint32_t mix_seed(uint32_t seed, uint32_t bh) {
-  uint32_t h = seed ^ (bh * 0x9E3779B1u);
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 7;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 15;
-  return h;
-}
-
-__device__ __forceinline__ bool keep(uint32_t seed_bh, int row, int col,
-                                     int sk, int thresh) {
-  uint32_t h = (static_cast<uint32_t>(row) * static_cast<uint32_t>(sk) +
-                static_cast<uint32_t>(col)) ^ seed_bh;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return static_cast<int>(h ^ 0x80000000u) >= thresh;
-}
 
 // fp32 value rounded to T (the operand cast before a product), in fp32
 template <typename T>
@@ -580,29 +552,6 @@ constexpr size_t dkv_smem() {
 
 enum class Pass { kFwd, kDq, kDkv };
 
-struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
-  void *out, *dk, *dv;
-  float* lse_out;
-  Dims dm;
-  float scale;
-  int causal;
-  Dropout dr;
-};
-
-// Opt a kernel into more than 48 KB of dynamic shared memory, once
-// (`done` is the flag of one kernel instantiation; no call happens inside
-// a graph capture that follows a warm-up launch).
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, size_t smem, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  done = err == cudaSuccess;
-  return err;
-}
-
 template <typename T, int DP>
 cudaError_t launch_pass(Pass pass, const Args& a, cudaStream_t s) {
   constexpr int BQ = Tile<DP>::BQ, BK = Tile<DP>::BK;
@@ -654,20 +603,6 @@ int run(Pass pass, Args a, int dtype, void* stream) {
                               ? launch_typed<float>(pass, a, s)
                               : launch_typed<__nv_bfloat16>(pass, a, s);
   return static_cast<int>(err);
-}
-
-Args make_args(const void* q, const void* k, const void* v, int B, int Sq,
-               int Sk, int Hq, int Hk, int D, float scale, int causal,
-               int drop_on, int thresh, float keep_scale, const void* seed) {
-  Args a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.dm = Dims{B, Sq, Sk, Hq, Hk, D};
-  a.scale = scale;
-  a.causal = causal;
-  a.dr = Dropout{drop_on, thresh, keep_scale, static_cast<const int*>(seed)};
-  return a;
 }
 
 }  // namespace

@@ -1,16 +1,16 @@
-// Flash attention forward and dk/dv backward on Hopper's tensor cores
+// Flash attention forward, dq and dk/dv on Hopper's tensor cores
 // (sm_90a): warpgroup MMA (wgmma) fed by TMA through mbarrier rings.
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel`
-// (launched by `_fwd`) and `_dkv_kernel` (launched by `_bwd_impl`) for
-// bf16 operands; `flash_attention.cu` keeps fp32, head dims above 128 and
-// strides TMA cannot take, and the dq pass. The contract is that file's
+// (launched by `_fwd`), `_dq_kernel` and `_dkv_kernel` (launched by
+// `_bwd_impl`) for bf16 operands; `flash_attention.cu` keeps fp32, head
+// dims above 128 and strides TMA cannot take. The contract is that file's
 // (its header comment), unchanged:
 //   q, dO, out: [B, Sq, Hq, D];  k, v, dk, dv: [B, Sk, Hk, D], read in
 //   place; lse, delta: [B*Hq, Sq] fp32; GQA by h / (Hq/Hk) without
 //   expanding K/V; causal keeps key j for query i iff j <= i + (Sk - Sq);
 //   s = scale * (q . k) in fp32; p rounded to bf16 before P.V (and before
-//   P^T.dO), ds before its product with Q; rows that see no key give
+//   P^T.dO), ds before its products with K and Q; rows that see no key give
 //   out = 0 and lse = -inf; dropout by the murmur3 hash of `_keep_block` /
 //   `_mix_seed`, bit for bit, with lse from the undropped p.
 // Here additionally: bf16 only, D a multiple of 8 up to 128 (zero-filled
@@ -18,14 +18,15 @@
 //
 // What bounds it: at GPT-2's training shape (B*H = 96, S = 1024, D = 64,
 // causal) the forward does 12.9 GFLOP on 50 MB (13 us at 989 TFLOP/s,
-// 15 us at 3.35 TB/s); dkv does twice the flops on about the same bytes,
-// so it is bound by operations (26 us).
+// 15 us at 3.35 TB/s); dq and dkv do 1.5x and twice the flops on about
+// the same bytes, so they are bound by operations (20 and 26 us).
 //
 // Design (FlashAttention-3's split, without its ping-pong scheduling or
 // intra-warpgroup overlap): 384 threads = three warpgroups. Warpgroup 0 is
 // the producer: it gives up registers (setmaxnreg 24) and one thread keeps
-// TMA loads in flight through a ring of two stages, each with a "full"
-// barrier (TMA bytes) and an "empty" barrier (256 consumer arrivals).
+// TMA loads in flight through a ring of stages (two; four in dq), each
+// with a "full" barrier (TMA bytes) and an "empty" barrier (256 consumer
+// arrivals).
 // Warpgroups 1 and 2 are consumers (setmaxnreg 240), 64 rows each.
 //
 // forward: grid (q tiles of 128, B*Hq), long causal rows first. Q is
@@ -45,13 +46,25 @@
 //   group); P^T = exp(S^T scale - lse) masked (the plain version's
 //   rounding, not exp2: p is rounded to bf16 next) and dropped;
 //   dS^T = P^T (dP^T_dropped - delta); dV += P^T.dO and dK += dS^T.Q (RS,
-//   B MN-major). Dropout is a template argument of this kernel only: that
-//   took a fifth off its time (fewer registers live) and slowed the
+//   B MN-major). Dropout is a template argument of dkv and dq: in dkv that
+//   took a fifth off its time (fewer registers live); it slowed the
 //   forward. Measured slower and not kept: issuing dV's product while
 //   dS^T is formed, and Q tiles of 32 rows at D = 128 (fewer spills, twice
 //   the tiles). Epilogue: dK x scale and dV to bf16, rows past Sk not
 //   stored.
+// dq: grid (q tiles of 128, B*Hq), long causal rows first, as the
+//   forward. Q and dO are loaded once; K and V tiles of 64 keys stream
+//   through four stages (registers, not shared memory, bound the tile:
+//   see DqTile). Each consumer reads the lse and delta of its two rows
+//   once from global memory. Per tile: S = Q.K^T and dP = dO.V^T (SS, the
+//   forward's descriptors); p = exp(s scale - lse) in the plain version's
+//   rounding, masked past the diagonal and at keys >= Sk (zero-filled by
+//   TMA: unlike dkv, no padded lse zeroes them); dropout on dP;
+//   dS = p (dP - delta) packed to bf16 A fragments; dQ += dS.K (RS, K
+//   MN-major). A warpgroup skips the tiles none of its rows sees.
+//   Epilogue: dQ x scale to bf16, rows past Sq not stored.
 #include "common.cuh"
+#include "flash_common.cuh"
 #include "hopper.cuh"
 
 #include <math.h>
@@ -62,46 +75,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace hop;
+using namespace ptk;
 
 constexpr int kThreads = 384;          // producer + two consumer warpgroups
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-struct Dims {
-  int B, Sq, Sk, Hq, Hk, D;
-};
-
-struct Dropout {
-  int on;
-  int thresh;          // pre-biased: keep iff (int)(hash ^ 0x80000000) >= thresh
-  float keep_scale;    // fp32(1 / (1 - rate))
-  const int* seed;     // one int32 on the device
-};
-
-// The dropout hash of flash_attention.cu, which it must match bit for bit
-// (chip_smoke.py reads both kernels' keep-masks back against
-// `dropout_keep_mask`).
-__device__ __forceinline__ uint32_t mix_seed(uint32_t seed, uint32_t bh) {
-  uint32_t h = seed ^ (bh * 0x9E3779B1u);
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 7;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 15;
-  return h;
-}
-
-__device__ __forceinline__ bool keep(uint32_t seed_bh, int row, int col,
-                                     int sk, int thresh) {
-  uint32_t h = (static_cast<uint32_t>(row) * static_cast<uint32_t>(sk) +
-                static_cast<uint32_t>(col)) ^ seed_bh;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return static_cast<int>(h ^ 0x80000000u) >= thresh;
-}
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>(
@@ -589,31 +569,203 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// launch
+// dq: grid (nq, B*Hq)
 // ---------------------------------------------------------------------------
 
-// Opt a kernel into more than 48 KB of dynamic shared memory, once per
-// instantiation (no call happens inside a graph capture that follows a
-// warm-up launch).
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int smem, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  done = err == cudaSuccess;
-  return err;
+// K/V tiles of 64 keys keep S, dP (32 each), dQ (DP / 2) and the dS
+// fragments (16) live per consumer thread inside its register budget;
+// tiles of 128 would need 64 + 64 + 64 + 32 at DP = 128.
+template <int DP>
+struct DqTile {
+  static constexpr int BQ = 128, BK = 64, STAGES = 4, CH = DP / 64;
+  static constexpr int Q_CHUNK = BQ * 128;          // bytes of one 64-col chunk
+  static constexpr int KV_CHUNK = BK * 128;
+  static constexpr int Q_BYTES = CH * Q_CHUNK;      // Q or dO, loaded once
+  static constexpr int KV_BYTES = CH * KV_CHUNK;    // K or V, one stage
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 128;
+};
+
+template <int DP, bool DROP>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               bf16* __restrict__ dq, Dims dm, float scale, int causal,
+               Dropout dr) {
+  using T = DqTile<DP>;
+  constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* dOs = Qs + T::Q_BYTES;
+  uint8_t* Ks = dOs + T::Q_BYTES;                    // [ST] x KV_BYTES
+  uint8_t* Vs = Ks + ST * T::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * T::KV_BYTES);
+  uint64_t* kv_full = q_full + 1;                    // [ST]
+  uint64_t* kv_empty = kv_full + ST;                 // [ST]
+
+  const int nq = (dm.Sq + BQ - 1) / BQ;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x);  // long rows first
+  const int bh = blockIdx.y;
+  const int b = bh / dm.Hq, h = bh % dm.Hq;
+  const int hk = h / (dm.Hq / dm.Hk);
+  const int q0 = qi * BQ;
+  const int offset = dm.Sk - dm.Sq;
+  int nk = (dm.Sk + BK - 1) / BK;
+  if (causal) {
+    const int last = q0 + BQ - 1 + offset;       // tiles past it are dead
+    nk = last < 0 ? 0 : min(nk, last / BK + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(kv_full + s, 1);
+      mbar_init(kv_empty + s, 2 * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer ----
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * T::Q_BYTES);
+      for (int c = 0; c < T::CH; ++c) {
+        tma_load_4d(Qs + c * T::Q_CHUNK, &tq, q_full, 64 * c, h, q0, b);
+        tma_load_4d(dOs + c * T::Q_CHUNK, &tdo, q_full, 64 * c, h, q0, b);
+      }
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % ST;
+        mbar_wait(kv_empty + s, ((kt / ST) & 1) ^ 1);
+        uint8_t* kd = Ks + s * T::KV_BYTES;
+        uint8_t* vd = Vs + s * T::KV_BYTES;
+        mbar_expect_tx(kv_full + s, 2 * T::KV_BYTES);
+        for (int c = 0; c < T::CH; ++c) {
+          tma_load_4d(kd + c * T::KV_CHUNK, &tk, kv_full + s, 64 * c, hk, kt * BK, b);
+          tma_load_4d(vd + c * T::KV_CHUNK, &tv, kv_full + s, 64 * c, hk, kt * BK, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    reg_alloc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x - 128 * wg;
+    const int w = t >> 5, l = t & 31;
+    const int row_base = q0 + 64 * cw;               // first row of this warpgroup
+    const uint32_t seed_bh =
+        DROP ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+
+    // lse and delta of the two rows this thread holds, read once: a row
+    // that sees no key (lse = -inf) reads 0; a row past Sq +inf, so its p
+    // is 0 (TMA zero-fills its Q and dO)
+    float ls[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_base + frag_row(w, l, 2 * r);
+      const size_t idx = static_cast<size_t>(bh) * dm.Sq + row;
+      const float x = row < dm.Sq ? lse[idx] : INFINITY;
+      ls[r] = x == -INFINITY ? 0.f : x;
+      dl[r] = row < dm.Sq ? delta[idx] : 0.f;
+    }
+
+    float dqa[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dqa[i] = 0.f;
+    const uint32_t q_addr = smem_u32(Qs) + 64 * cw * 128;
+    const uint32_t do_addr = smem_u32(dOs) + 64 * cw * 128;
+
+    mbar_wait(q_full, 0);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % ST;
+      const uint32_t par = (kt / ST) & 1;
+      const int k0 = kt * BK;
+      // no row of this warpgroup sees a key of the tile: nothing to add
+      // (waiting for the tile keeps this arrival in round `kt`, as in dkv)
+      if (row_base >= dm.Sq || (causal && k0 > row_base + 63 + offset)) {
+        mbar_wait(kv_full + s, par);
+        mbar_arrive(kv_empty + s);
+        continue;
+      }
+      const uint32_t k_addr = smem_u32(Ks + s * T::KV_BYTES);
+      const uint32_t v_addr = smem_u32(Vs + s * T::KV_BYTES);
+
+      // S = Q K^T and dP = dO V^T (fp32, 64 rows x BK keys) as one batch
+      // on one barrier for K and V: a wait loop between the two products
+      // made ptxas wait out every wgmma (a fifth of the kernel's time)
+      float sc[BK / 2], dpa[BK / 2];
+      mbar_wait(kv_full + s, par);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_ss<BK, 0>(sc, desc_sw128(q_addr + (kk >> 2) * T::Q_CHUNK + off, 16, 1024),
+                        desc_sw128(k_addr + (kk >> 2) * T::KV_CHUNK + off, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_ss<BK, 0>(dpa, desc_sw128(do_addr + (kk >> 2) * T::Q_CHUNK + off, 16, 1024),
+                        desc_sw128(v_addr + (kk >> 2) * T::KV_CHUNK + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dpa);
+
+      // dS = P (dP_dropped - delta), rounded to bf16 as the A fragments of
+      // dQ += dS K. Masks where the diagonal or the ragged key edge cuts:
+      // TMA zero-fills keys past Sk, whose s = 0 would give p = exp(-lse)
+      const bool cut = k0 + BK > dm.Sk ||
+                       (causal && k0 + BK - 1 > row_base + offset);
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        float ds[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = row_base + frag_row(w, l, j);
+          const int col = k0 + frag_col(l, i, j);
+          // exp(s scale - lse) in the plain version's order of rounding, as
+          // in dkv (exp2 flips the bf16 rounding of some large p)
+          float p = expf(__fmul_rn(sc[4 * i + j], scale) - ls[j >> 1]);
+          if (cut && (col >= dm.Sk || (causal && col > row + offset))) p = 0.f;
+          float dp = dpa[4 * i + j];
+          if constexpr (DROP)
+            dp = keep(seed_bh, row, col, dm.Sk, dr.thresh) ? dp * dr.keep_scale : 0.f;
+          ds[j] = p * (dp - dl[j >> 1]);
+        }
+        da[i >> 1][2 * (i & 1)] = pack_bf16(ds[0], ds[1]);
+        da[i >> 1][2 * (i & 1) + 1] = pack_bf16(ds[2], ds[3]);
+      }
+
+      // dQ += dS K (K MN-major: +16 keys per k16 step, LBO = the distance
+      // between K's two 64-column chunks)
+      fence_regs(dqa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<DP, 1>(dqa, da[kk], desc_sw128(k_addr + kk * 2048, T::KV_CHUNK, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      fence_frags(da);
+      mbar_arrive(kv_empty + s);
+    }
+
+    const size_t stride = static_cast<size_t>(dm.Hq) * dm.D;
+    bf16* db = dq + (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
+    store_rows<DP>(db, stride, dqa, row_base, dm.Sq, dm.D, scale, scale, w, l);
+  }
 }
 
-struct Args {
-  const void *q, *k, *v, *dout;
-  const float *lse, *delta;
-  void *out, *dk, *dv;
-  float* lse_out;
-  Dims dm;
-  float scale;
-  int causal;
-  Dropout dr;
-};
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
 
 // The maps are encoded on every call, from this call's pointers: a tensor
 // map holds its base address, so one cached by shape alone would read
@@ -660,6 +812,28 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <int DP>
+cudaError_t launch_dq(const Args& a, cudaStream_t s) {
+  using T = DqTile<DP>;
+  const Dims& d = a.dm;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = make_map_bshd(&tq, a.q, d.B, d.Sq, d.Hq, d.D, T::BQ)) != cudaSuccess ||
+      (err = make_map_bshd(&tdo, a.dout, d.B, d.Sq, d.Hq, d.D, T::BQ)) != cudaSuccess ||
+      (err = make_map_bshd(&tk, a.k, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess ||
+      (err = make_map_bshd(&tv, a.v, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess)
+    return err;
+  static bool smem_set[2] = {false, false};          // per dropout off/on
+  const int drop = a.dr.on ? 1 : 0;
+  auto kern = drop ? dq_sm90_kernel<DP, true> : dq_sm90_kernel<DP, false>;
+  if ((err = allow_smem(kern, T::SMEM, smem_set[drop])) != cudaSuccess) return err;
+  const int nq = (d.Sq + T::BQ - 1) / T::BQ;
+  kern<<<dim3(nq, d.B * d.Hq), kThreads, T::SMEM, s>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.out), d, a.scale,
+      a.causal, a.dr);
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -673,20 +847,6 @@ bool valid(const Args& a, std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (!aligned16(p)) return false;
   return true;
-}
-
-Args make_args(const void* q, const void* k, const void* v, int B, int Sq,
-               int Sk, int Hq, int Hk, int D, float scale, int causal,
-               int drop_on, int thresh, float keep_scale, const void* seed) {
-  Args a{};
-  a.q = q;
-  a.k = k;
-  a.v = v;
-  a.dm = Dims{B, Sq, Sk, Hq, Hk, D};
-  a.scale = scale;
-  a.causal = causal;
-  a.dr = Dropout{drop_on, thresh, keep_scale, static_cast<const int*>(seed)};
-  return a;
 }
 
 }  // namespace
@@ -707,6 +867,26 @@ extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
   if (!valid(a, {q, k, v, out})) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(D <= 64 ? launch_fwd<64>(a, s) : launch_fwd<128>(a, s));
+}
+
+extern "C" int flash_dq_sm90(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dq, int B, int Sq,
+                             int Sk, int Hq, int Hk, int D, float scale,
+                             int causal, int drop_on, int thresh,
+                             float keep_scale, const void* seed,
+                             void* stream) {
+  Args a = make_args(q, k, v, B, Sq, Sk, Hq, Hk, D, scale, causal, drop_on,
+                     thresh, keep_scale, seed);
+  a.dout = dout;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.out = dq;
+  if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
+  if (!valid(a, {q, k, v, dout, dq}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(D <= 64 ? launch_dq<64>(a, s) : launch_dq<128>(a, s));
 }
 
 extern "C" int flash_dkv_sm90(const void* q, const void* k, const void* v,

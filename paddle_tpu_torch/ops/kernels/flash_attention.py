@@ -1,5 +1,5 @@
 """Flash attention: the CUDA kernels ``csrc/flash_attention_sm90.cu``
-(forward and dkv on the tensor cores) and ``csrc/flash_attention.cu``
+(forward, dq and dkv on the tensor cores) and ``csrc/flash_attention.cu``
 (forward, dq and dkv as fp32 FMA loops), and their plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: the plain
@@ -28,12 +28,12 @@ layout, and are fed the same ``lse`` and ``delta = rowsum(dO * O)``:
 tensor runs the plain version; a CUDA tensor launches a kernel or raises.
 Which kernel is ``flash_route``'s choice, a documented split and not a
 fallback: bf16 operands with a head dim that is a multiple of 8 up to 128
-and 16-byte aligned take the wgmma kernels (forward and dkv; TMA needs
-those strides and alignments), everything else (fp32, whose contract is
-exact fp32 where the tensor cores would give TF32; head dims above 128)
-the FMA kernels. dq always runs the FMA kernel. Each kernel counts its
-own launches: ``flash_fwd.launches``, ``flash_dq.launches`` and
-``flash_dkv.launches`` the FMA kernels', ``flash_fwd.wgmma.launches`` and
+and 16-byte aligned take the wgmma kernels (TMA needs those strides and
+alignments), everything else (fp32, whose contract is exact fp32 where
+the tensor cores would give TF32; head dims above 128) the FMA kernels.
+Each kernel counts its own launches: ``flash_fwd.launches``,
+``flash_dq.launches`` and ``flash_dkv.launches`` the FMA kernels',
+``flash_fwd.wgmma.launches``, ``flash_dq.wgmma.launches`` and
 ``flash_dkv.wgmma.launches`` the wgmma kernels'.
 ``flash_attention_ext`` is the differentiable entry (a
 ``torch.autograd.Function`` saving ``(q, k, v, out, lse)`` like
@@ -286,12 +286,13 @@ def _check(q, k, v, *more) -> Tuple[int, int, int, int, int, int]:
 
 def flash_route(dtype: torch.dtype, head_dim: int,
                 addresses: Sequence[int] = ()) -> str:
-    """The kernel a CUDA call of ``flash_fwd`` / ``flash_dkv`` launches:
-    ``"wgmma"`` (``csrc/flash_attention_sm90.cu``) for bf16 with
-    ``head_dim`` a multiple of 8 up to ``WGMMA_MAX_HEAD_DIM`` (so the
-    head stride ``D * 2`` and row stride ``H * D * 2`` bytes are multiples
-    of 16, as TMA requires) and every operand address 16-byte aligned;
-    ``"fma"`` (``csrc/flash_attention.cu``) otherwise."""
+    """The kernel a CUDA call of ``flash_fwd``, ``flash_dq`` or
+    ``flash_dkv`` launches: ``"wgmma"`` (``csrc/flash_attention_sm90.cu``)
+    for bf16 with ``head_dim`` a multiple of 8 up to
+    ``WGMMA_MAX_HEAD_DIM`` (so the head stride ``D * 2`` and row stride
+    ``H * D * 2`` bytes are multiples of 16, as TMA requires) and every
+    operand address 16-byte aligned; ``"fma"`` (``csrc/flash_attention.cu``)
+    otherwise."""
     if (dtype == torch.bfloat16 and head_dim % 8 == 0
             and 0 < head_dim <= WGMMA_MAX_HEAD_DIM
             and all(a % 16 == 0 for a in addresses)):
@@ -335,6 +336,21 @@ def _common_args(dims, scale, causal, rate, seed, q, route="fma"):
             *_drop_args(rate, seed, q), *dtype, _build.stream(q))
 
 
+def _launch_on(route: str, wrapper, entry: str, tensors, args) -> None:
+    """Launch C entry ``entry`` (``<entry>_sm90`` of
+    ``flash_attention_sm90`` on the wgmma route, else of
+    ``flash_attention``), counted on ``wrapper``'s counter of that
+    route; a non-zero CUDA error code raises."""
+    if route == "wgmma":
+        lib, counter = _build.load("flash_attention_sm90"), wrapper.wgmma
+        entry += "_sm90"
+    else:
+        lib, counter = _build.load("flash_attention"), wrapper
+    counter.launches += 1
+    rc = getattr(lib, entry)(*map(_build.ptr, tensors), *args)
+    _build.check(lib, rc, entry)
+
+
 def _fwd_launch(q, k, v, causal, scale, rate, seed, route=None):
     """``route`` defaults to ``flash_route``'s choice; the on-card checks
     also name "fma" for bf16, to hold and time that kernel on the main
@@ -343,33 +359,23 @@ def _fwd_launch(q, k, v, causal, scale, rate, seed, route=None):
     b, sq, _, hq, _, _ = dims
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    tensors = (q, k, v, out, lse)
     route = route or _route(q, k, v, out)
-    args = _common_args(dims, scale, causal, rate, seed, q, route)
-    if route == "wgmma":
-        lib = _build.load("flash_attention_sm90")
-        flash_fwd.wgmma.launches += 1
-        rc = lib.flash_fwd_sm90(*map(_build.ptr, tensors), *args)
-        _build.check(lib, rc, "flash_fwd_sm90")
-    else:
-        lib = _build.load("flash_attention")
-        flash_fwd.launches += 1
-        rc = lib.flash_fwd(*map(_build.ptr, tensors), *args)
-        _build.check(lib, rc, "flash_fwd")
+    _launch_on(route, flash_fwd, "flash_fwd", (q, k, v, out, lse),
+               _common_args(dims, scale, causal, rate, seed, q, route))
     return out, lse
 
 
-def _dq_launch(q, k, v, do, lse, delta, causal, scale, rate, seed):
+def _dq_launch(q, k, v, do, lse, delta, causal, scale, rate, seed,
+               route=None):
+    """``route`` as in ``_fwd_launch``."""
     dims = _check(q, k, v, do)
     b, sq, _, hq, _, _ = dims
     _check_stat("lse", lse, b, hq, sq)
     _check_stat("delta", delta, b, hq, sq)
     dq = torch.empty_like(q)
-    args = _common_args(dims, scale, causal, rate, seed, q)
-    lib = _build.load("flash_attention")
-    flash_dq.launches += 1
-    rc = lib.flash_dq(*map(_build.ptr, (q, k, v, do, lse, delta, dq)), *args)
-    _build.check(lib, rc, "flash_dq")
+    route = route or _route(q, k, v, do, dq)
+    _launch_on(route, flash_dq, "flash_dq", (q, k, v, do, lse, delta, dq),
+               _common_args(dims, scale, causal, rate, seed, q, route))
     return dq
 
 
@@ -382,19 +388,10 @@ def _dkv_launch(q, k, v, do, lse, delta, causal, scale, rate, seed,
     _check_stat("delta", delta, b, hq, sq)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    tensors = (q, k, v, do, lse, delta, dk, dv)
     route = route or _route(q, k, v, do, dk, dv)
-    args = _common_args(dims, scale, causal, rate, seed, q, route)
-    if route == "wgmma":
-        lib = _build.load("flash_attention_sm90")
-        flash_dkv.wgmma.launches += 1
-        rc = lib.flash_dkv_sm90(*map(_build.ptr, tensors), *args)
-        _build.check(lib, rc, "flash_dkv_sm90")
-    else:
-        lib = _build.load("flash_attention")
-        flash_dkv.launches += 1
-        rc = lib.flash_dkv(*map(_build.ptr, tensors), *args)
-        _build.check(lib, rc, "flash_dkv")
+    _launch_on(route, flash_dkv, "flash_dkv",
+               (q, k, v, do, lse, delta, dk, dv),
+               _common_args(dims, scale, causal, rate, seed, q, route))
     return dk, dv
 
 
@@ -409,7 +406,8 @@ def flash_fwd(q, k, v, causal: bool, scale: float, rate: float = 0.0,
 
 def flash_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
              rate: float = 0.0, seed: Optional[torch.Tensor] = None):
-    """dq: the dq kernel on the card (``flash_dq.launches``),
+    """dq: a dq kernel on the card, by ``flash_route``
+    (``flash_dq.wgmma.launches`` or ``flash_dq.launches``),
     ``flash_dq_plain`` on the CPU."""
     return _build.dispatch(flash_dq_plain, _dq_launch, q, k, v, do, lse,
                            delta, causal, scale, rate, seed)
@@ -436,6 +434,7 @@ flash_fwd.launches = 0
 flash_dq.launches = 0
 flash_dkv.launches = 0
 flash_fwd.wgmma = KernelCount()
+flash_dq.wgmma = KernelCount()
 flash_dkv.wgmma = KernelCount()
 
 

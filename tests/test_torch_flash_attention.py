@@ -354,7 +354,8 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
                                                          entry):
     """Each launch takes its route's C entry with the arity and types of
     ``_build._SIGNATURES`` (the wgmma entries without a dtype code) and
-    counts on its own kernel's counter; dq stays on the FMA kernel."""
+    counts on its own kernel's counter; dq follows the route like the
+    forward and dkv."""
     libs = {n: _fake_library(n)
             for n in ("flash_attention", "flash_attention_sm90")}
     monkeypatch.setattr(_build, "load", libs.__getitem__)
@@ -363,7 +364,7 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
     do = q.clone() if not misaligned else q
     lse = torch.zeros(1, 4, 8)
     counters = (tfa.flash_fwd, tfa.flash_fwd.wgmma, tfa.flash_dq,
-                tfa.flash_dkv, tfa.flash_dkv.wgmma)
+                tfa.flash_dq.wgmma, tfa.flash_dkv, tfa.flash_dkv.wgmma)
     before = [c.launches for c in counters]
     tfa._fwd_launch(q, k, v, True, 0.125, 0.0, None)
     tfa._dq_launch(q, k, v, do, lse, lse, True, 0.125, 0.0, None)
@@ -372,11 +373,11 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
     sm90 = [fn for fn, _ in libs["flash_attention_sm90"].calls]
     fma = [fn for fn, args in libs["flash_attention"].calls]
     if entry == "sm90":
-        assert moved == [0, 1, 1, 0, 1]
-        assert (sm90, fma) == (["flash_fwd_sm90", "flash_dkv_sm90"],
-                               ["flash_dq"])
+        assert moved == [0, 1, 0, 1, 0, 1]
+        assert (sm90, fma) == (["flash_fwd_sm90", "flash_dq_sm90",
+                                "flash_dkv_sm90"], [])
     else:
-        assert moved == [1, 0, 1, 1, 0]
+        assert moved == [1, 0, 1, 0, 1, 0]
         assert (sm90, fma) == ([], ["flash_fwd", "flash_dq", "flash_dkv"])
         codes = {args[-2] for _, args in libs["flash_attention"].calls}
         assert codes == {_build.DTYPE_CODES[dtype]}
@@ -384,7 +385,7 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
 
 def test_cpu_call_counts_no_launch_on_either_route():
     counters = (tfa.flash_fwd, tfa.flash_fwd.wgmma, tfa.flash_dq,
-                tfa.flash_dkv, tfa.flash_dkv.wgmma)
+                tfa.flash_dq.wgmma, tfa.flash_dkv, tfa.flash_dkv.wgmma)
     before = [c.launches for c in counters]
     q, k, v, _ = (t.bfloat16().requires_grad_()
                   for t in _t(*_inputs(CASES[1])))
@@ -450,3 +451,108 @@ def test_wgmma_tiling_passes_the_chip_check(sq, sk, causal):
     _, lse_bad = _wgmma_fwd(q, k, v, scale, causal, ln2=False)
     with pytest.raises(AssertionError):
         cs.check_close("lse", lse_bad, lse_ref, cs.LSE_RTOL, quiet=True)
+
+
+def _wgmma_dq(q, k, v, do, lse, delta, scale, causal, block=64,
+              mask_tail=True, scaled=True):
+    """The wgmma dq's arithmetic, in torch: k tiles of ``block`` keys, K
+    and V zero-filled past Sk (as TMA fills them), kv head h // rep;
+    p = exp(fp32(s * scale) - lse) with an lse of -inf read as 0, zero
+    past the diagonal and at keys >= Sk (``mask_tail`` False leaves the
+    latter: a planted fault); ds = p (dp - delta) rounded to bf16; dQ
+    summed in fp32 tile by tile, times the scale at the end (``scaled``
+    False leaves it off: a planted fault)."""
+    b, sq, hq, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    pad = -sk % block
+
+    def tiles(x):                        # [B, Sk + pad, Hq, D], fp32
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        return x.repeat_interleave(hq // hk, dim=2)
+
+    kp, vp = tiles(k), tiles(v)
+    lse_safe = torch.where(lse == float("-inf"), 0.0, lse)[..., None]
+    rows = torch.arange(sq)[:, None]
+    acc = torch.zeros(b, hq, sq, d)
+    for k0 in range(0, sk + pad, block):
+        kt, vt = kp[:, k0:k0 + block], vp[:, k0:k0 + block]
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kt)
+        p = torch.exp(s * scale - lse_safe)
+        cols = torch.arange(k0, k0 + block)[None, :]
+        hidden = cols >= sk if mask_tail else torch.zeros(1, block,
+                                                          dtype=torch.bool)
+        if causal:
+            hidden = hidden | (cols > rows + (sk - sq))
+        p = p.masked_fill(hidden, 0.0)
+        dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vt)
+        ds = (p * (dp - delta[..., None])).bfloat16().float()
+        acc = acc + ds @ kt.permute(0, 2, 1, 3)
+    return (acc * scale if scaled else acc).permute(0, 2, 1, 3).bfloat16()
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(512, 512, True), (333, 200, True),
+                                          (200, 333, False)])
+def test_wgmma_dq_tiling_passes_the_chip_check(sq, sk, causal):
+    """The wgmma dq's tiling (64-key tiles, exp in the plain version's
+    order, ds rounded to bf16, the fp32 sum tile by tile, the scale at the
+    end) stays inside chip_smoke.py's unchanged bf16 bwd FLASH_RTOL
+    against flash_dq_plain, at ragged Sk, at Sq > Sk (rows that see no
+    key) and with GQA 2/1. Leaving the scale off dQ fails. Keys past Sk
+    are zero-filled, so an unmasked p there adds p x 0 to dQ: harmless
+    until exp(-lse) overflows, as it does for query row 0 (its scores lie
+    near -200), and then inf x 0 poisons dQ with NaN: without the tail
+    mask the non-causal ragged case fails."""
+    cs = _chip_smoke()
+    rtol = cs.FLASH_RTOL["bwd"][torch.bfloat16]
+    rng = np.random.RandomState(12)
+    mk = lambda s, h: torch.from_numpy(rng.standard_normal(  # noqa: E731
+        (1, s, h, 64)).astype(np.float32))
+    q, do = mk(sq, 2), mk(sq, 2)
+    k, v = mk(sk, 1) + 1.0, mk(sk, 1)
+    q[:, 0] = -25.0
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    scale = 0.125
+    out, lse = tfa.flash_fwd_plain(q, k, v, causal, scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    ref = tfa.flash_dq_plain(q, k, v, do, lse, delta, causal, scale)
+    got = _wgmma_dq(q, k, v, do, lse, delta, scale, causal)
+    cs.check_close("dq", got, ref, rtol, quiet=True)
+    with pytest.raises(AssertionError):
+        cs.check_close("dq", _wgmma_dq(q, k, v, do, lse, delta, scale, causal,
+                                       scaled=False), ref, rtol, quiet=True)
+    if not causal and sk % 64:
+        assert float(lse[0, :, 0].max()) < -88.0
+        with pytest.raises(AssertionError):
+            cs.check_close("dq", _wgmma_dq(q, k, v, do, lse, delta, scale,
+                                           causal, mask_tail=False),
+                           ref, rtol, quiet=True)
+
+
+def test_ptxas_report_reads_registers_spills_and_wgmma_waits():
+    """chip_smoke.py's build report: ptxas's registers and spills per
+    wgmma kernel under a short name, and from the SASS its HGMMAs and the
+    wgmma waits among them (one per HGMMA: serialised products)."""
+    cs = _chip_smoke()
+    dq = ("_ZN12_GLOBAL__N_114dq_sm90_kernelILi64ELb0EEEv14CUtensorMap_st"
+          "PKfS3_N3ptk4DimsEfiNS5_7DropoutE")
+    fwd = "_ZN12_GLOBAL__N_115fwd_sm90_kernelILi128EEEv14CUtensorMap_st"
+    log = (f"ptxas info    : Compiling entry function '{dq}' for 'sm_90a'\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill "
+           "loads\nptxas info    : Used 168 registers, used 1 barriers\n"
+           f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 154 registers\n"
+           f"ptxas warning : (C7512) wgmma serialized in '{fwd}'\n")
+    sass = (f"\t\tFunction : {dq}\n HGMMA.64x64x16 ;\n WARPGROUP.DEPBAR.LE "
+            "gsb0, 0x0 ;\n HGMMA.64x64x16 ;\n WARPGROUP.DEPBAR.LE gsb0, 0x0"
+            f" ;\n\t\tFunction : {fwd}\n HGMMA.64x128x16 ;\n HGMMA.64x128x16"
+            " ;\n WARPGROUP.DEPBAR.LE gsb0, 0x0 ;\n")
+    rep = cs.ptxas_report(log, sass)
+    assert rep["kernels"] == [
+        {"kernel": "dq_sm90_kernel<64,0>", "spill_stores": 8,
+         "spill_loads": 12, "registers": 168, "hgmma": 2, "wgmma_waits": 2},
+        {"kernel": "fwd_sm90_kernel<128>", "spill_stores": 0,
+         "spill_loads": 0, "registers": 154, "hgmma": 2, "wgmma_waits": 1}]
+    assert rep["warnings"] == [
+        "ptxas warning : (C7512) wgmma serialized in "
+        "'fwd_sm90_kernel<128>'"]
