@@ -81,12 +81,9 @@ class GPTModel(nn.Module):
                               epsilon=config.layer_norm_eps, device=device)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        s = input_ids.shape[1]
-        if s > self.config.max_position_embeddings:
-            raise ValueError(
-                f"sequence length {s} exceeds max_position_embeddings="
-                f"{self.config.max_position_embeddings}")
-        pos = torch.arange(s, device=input_ids.device)
+        # positions past the wpe table read its last row: the clamping
+        # embedding, as the reference's clipping lookup does
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
         h = self.drop(self.wte(input_ids) + self.wpe(pos))
         # "causal" routes to the flash kernels' native causal path
         h = self.encoder(h, src_mask="causal")

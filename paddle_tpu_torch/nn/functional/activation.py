@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gelu", "relu", "silu"]
+__all__ = ["gelu", "relu", "silu", "tanh"]
 
 
 def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
@@ -20,3 +20,7 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)``."""
     return torch.nn.functional.silu(x)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)

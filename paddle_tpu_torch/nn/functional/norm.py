@@ -6,8 +6,7 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from ...ops.kernels.norms import LayerNormFunction
-from ...ops.kernels.norms import rms_norm as _rms_norm_kernel
+from ...ops.kernels.norms import LayerNormFunction, RMSNormFunction
 
 __all__ = ["layer_norm", "rms_norm"]
 
@@ -15,9 +14,11 @@ __all__ = ["layer_norm", "rms_norm"]
 def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
              epsilon: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis: ``x * rsqrt(mean(x^2) + eps) * weight``,
-    accumulated in fp32 and returned in ``x.dtype``. On the card this is
-    the hand-written kernel (``ops/kernels/csrc/rms_norm.cu``)."""
-    return _rms_norm_kernel(x, weight, float(epsilon))[0]
+    accumulated in fp32 and returned in ``x.dtype``; differentiable. On
+    the card the forward is the hand-written kernel
+    (``ops/kernels/csrc/rms_norm.cu``) and the backward plain PyTorch
+    from its saved statistic."""
+    return RMSNormFunction.apply(x, weight, float(epsilon))
 
 
 def layer_norm(x: torch.Tensor,

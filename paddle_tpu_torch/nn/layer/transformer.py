@@ -5,9 +5,10 @@ the ``[in, out]`` linear layout.
 
 Attention runs through ``F.scaled_dot_product_attention``: the
 hand-written flash-attention kernels on the card. The string mask
-``"causal"`` routes to their native causal path, as in the reference;
-an additive tensor mask is not ported yet and raises. The decode cache
-path (``cache=``) belongs to a later slice.
+``"causal"`` routes to their native causal path, as in the reference; a
+tensor mask becomes the kernels' additive bias (a bool mask first turns
+into 0 / -1e9 in the query's dtype, ``_convert_attn_mask``). The decode
+cache path (``cache=``) belongs to a later slice.
 
 Layers take ``device`` and an explicit ``generator``: it draws the
 initial weights and, afterwards, every dropout mask and attention
@@ -29,14 +30,18 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder"]
 
 
-def _causal_or_mask(attn_mask):
-    """(is_causal, additive mask or None) for an ``attn_mask`` argument."""
+def _convert_attn_mask(attn_mask, dtype: torch.dtype):
+    """``"causal"``, None, or an additive mask: a bool mask (True = attend)
+    becomes ``where(m, 0, -1e9)`` in ``dtype``; a float mask passes as it
+    is."""
     if isinstance(attn_mask, str):
         if attn_mask != "causal":
             raise ValueError(f"unknown attention mask string {attn_mask!r}; "
                              "the only recognized value is 'causal'")
-        return True, None
-    return False, attn_mask
+        return attn_mask
+    if attn_mask is not None and attn_mask.dtype == torch.bool:
+        return torch.where(attn_mask, 0.0, -1e9).to(dtype)
+    return attn_mask
 
 
 class MultiHeadAttention(nn.Module):
@@ -82,9 +87,11 @@ class MultiHeadAttention(nn.Module):
         q = self._shape(self.q_proj(query))
         k = self._shape(self.k_proj(key))
         v = self._shape(self.v_proj(value))
-        causal, mask = _causal_or_mask(attn_mask)
+        mask = _convert_attn_mask(attn_mask, q.dtype)
+        causal = isinstance(mask, str)
         out = F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, dropout_p=self.dropout,
+            q, k, v, attn_mask=None if causal else mask,
+            dropout_p=self.dropout,
             is_causal=causal, training=self.training,
             generator=self._generator)
         b, s = out.shape[0], out.shape[1]

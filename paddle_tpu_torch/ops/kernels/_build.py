@@ -45,6 +45,15 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# the flash entries' scalars (B, Sq, Sk, Hq, Hk, D, scale, causal,
+# dropout_on, threshold, keep_scale, seed) and mask arguments (bias, its
+# strides over B, H, Sq, Sk, q / k segment words, seg_causal)
+_FLASH_SCALARS = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_float, ctypes.c_void_p]
+_FLASH_MASK = ([ctypes.c_void_p] + [ctypes.c_longlong] * 4
+               + [ctypes.c_void_p] * 2 + [ctypes.c_int])
+
 # C signature of every exported entry point, per source
 _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
     "rms_norm": {
@@ -78,25 +87,21 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
     },
     "flash_attention": {
         # (tensors..., B, Sq, Sk, Hq, Hk, D, scale, causal, dropout_on,
-        #  threshold, keep_scale, seed or NULL, dtype, stream)
-        **{fn: ([ctypes.c_void_p] * n
-                + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_float, ctypes.c_void_p,
-                                        ctypes.c_int, ctypes.c_void_p],
-                ctypes.c_int)
+        #  threshold, keep_scale, seed or NULL, bias or NULL, its four
+        #  element strides, q / k segment words or NULL, seg_causal,
+        #  [dq: dbias or NULL], dtype, stream)
+        **{fn: ([ctypes.c_void_p] * n + _FLASH_SCALARS + _FLASH_MASK
+                + [ctypes.c_void_p] * (fn == "flash_dq")
+                + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
            for fn, n in (("flash_fwd", 5), ("flash_dq", 7),
                          ("flash_dkv", 8))},
         "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "flash_attention_sm90": {
         # bf16 only: as "flash_attention" without the dtype code
-        **{fn: ([ctypes.c_void_p] * n
-                + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_float, ctypes.c_void_p,
-                                        ctypes.c_void_p],
-                ctypes.c_int)
+        **{fn: ([ctypes.c_void_p] * n + _FLASH_SCALARS + _FLASH_MASK
+                + [ctypes.c_void_p] * (fn == "flash_dq_sm90")
+                + [ctypes.c_void_p], ctypes.c_int)
            for fn, n in (("flash_fwd_sm90", 5), ("flash_dq_sm90", 7),
                          ("flash_dkv_sm90", 8))},
         "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),

@@ -14,6 +14,13 @@
 //   and lse = -inf. Dropout keeps an element by the murmur3 hash of
 //   `_keep_block` / `_mix_seed` (bit for bit); lse comes from the
 //   undropped p. fp32 and bf16; head_dim D <= 256.
+//   An additive fp32 bias (any broadcast of [B, Hq, Sq, Sk], by strides)
+//   is added to scale * (q . k) before the masks, and segment words hide
+//   keys of other segments (flash_common.cuh, Mask); the dq pass can write
+//   ds as dbias. Segments make the global diagonal the caller's choice:
+//   under per-segment causal it passes causal = 0. Each kernel takes them
+//   only in its MASK instantiation, so the one without them keeps its
+//   code and time.
 //
 // Grid split, as on the TPU:
 //   fwd: one block per (q tile, b*Hq + h): online softmax over k tiles;
@@ -101,16 +108,37 @@ __device__ __forceinline__ int causal_k_tiles(int q0, int offset, int nk) {
   return min(nk, last / BK + 1);
 }
 
+// Whether row r sees key c: the key edge, the causal diagonal and the
+// segment words (a row past Sq sees nothing once segments are on).
+__device__ __forceinline__ bool visible(const Mask& mk, const Dims& dm, int b,
+                                        int r, int c, int causal,
+                                        int offset) {
+  if (c >= dm.Sk || (causal && c > r + offset)) return false;
+  if (mk.qseg == nullptr) return true;
+  return r < dm.Sq &&
+         seg_sees(mk.qseg[static_cast<size_t>(b) * dm.Sq + r],
+                  mk.kseg[static_cast<size_t>(b) * dm.Sk + c], mk.seg_causal);
+}
+
+// scale * s plus the bias of (r, c) for a visible c (< Sk), in the plain
+// version's order: the product, then the sum
+__device__ __forceinline__ float biased(float s, float scale, const Mask& mk,
+                                        const Dims& dm, int b, int h, int r,
+                                        int c) {
+  const float bv = r < dm.Sq ? bias_at(mk, b, h, r, c) : 0.f;
+  return __fadd_rn(__fmul_rn(s, scale), bv);
+}
+
 // ---------------------------------------------------------------------------
 // forward: grid (nq, B*Hq)
 // ---------------------------------------------------------------------------
 
-template <typename T, int DP, int BQ, int BK>
+template <typename T, int DP, int BQ, int BK, bool MASK>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ out,
            float* __restrict__ lse, Dims dm, float scale, int causal,
-           Dropout dr) {
+           Dropout dr, Mask mk) {
   constexpr int RQ = BQ / 16, CK = BK / 16, CD = DP / 16;
   constexpr int QLD = DP + 1, KLD = BK + 1, VLD = DP, PLD = BK + 1;
   extern __shared__ float smem[];
@@ -180,8 +208,15 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CK; ++j) {
         const int c = k0 + tx + 16 * j;
-        const bool ok = c < dm.Sk && (!causal || c <= r + offset);
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
+        if constexpr (MASK) {
+          const bool ok = visible(mk, dm, b, r, c, causal, offset);
+          const float x = mk.bias ? biased(s[i][j], scale, mk, dm, b, h, r, c)
+                                  : s[i][j] * scale;
+          s[i][j] = ok ? x : -INFINITY;
+        } else {
+          const bool ok = c < dm.Sk && (!causal || c <= r + offset);
+          s[i][j] = ok ? s[i][j] * scale : -INFINITY;
+        }
         mx = fmaxf(mx, s[i][j]);
       }
       mx = row_max16(mx);
@@ -242,12 +277,13 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dq: grid (nq, B*Hq)
 // ---------------------------------------------------------------------------
 
-template <typename T, int DP, int BQ, int BK>
+template <typename T, int DP, int BQ, int BK, bool MASK>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, Dims dm, float scale, int causal, Dropout dr) {
+          T* __restrict__ dq, Dims dm, float scale, int causal, Dropout dr,
+          Mask mk) {
   constexpr int RQ = BQ / 16, CK = BK / 16, CD = DP / 16;
   constexpr int QLD = DP + 1, KLD = BK + 1, SLD = BK + 1;
   extern __shared__ float smem[];
@@ -335,11 +371,23 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CK; ++j) {
         const int c = k0 + tx + 16 * j;
-        const bool ok = c < dm.Sk && (!causal || c <= r + offset);
-        const float p = ok ? expf(s[i][j] * scale - lse_s[rl]) : 0.f;
+        float p;
+        if constexpr (MASK) {
+          p = 0.f;
+          if (visible(mk, dm, b, r, c, causal, offset))
+            p = mk.bias ? expf(biased(s[i][j], scale, mk, dm, b, h, r, c) - lse_s[rl])
+                        : expf(s[i][j] * scale - lse_s[rl]);
+        } else {
+          const bool ok = c < dm.Sk && (!causal || c <= r + offset);
+          p = ok ? expf(s[i][j] * scale - lse_s[rl]) : 0.f;
+        }
         float dpv = dp[i][j];
         if (dr.on) dpv = keep(seed_bh, r, c, dm.Sk, dr.thresh) ? dpv * dr.keep_scale : 0.f;
-        dSs[rl * SLD + tx + 16 * j] = round_to<T>(p * (dpv - dl_s[rl]));
+        const float ds = p * (dpv - dl_s[rl]);
+        if constexpr (MASK)
+          if (mk.dbias && r < dm.Sq && c < dm.Sk)
+            mk.dbias[(static_cast<size_t>(bh) * dm.Sq + r) * dm.Sk + c] = ds;
+        dSs[rl * SLD + tx + 16 * j] = round_to<T>(ds);
       }
     }
     __syncthreads();
@@ -377,13 +425,13 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dkv: grid (nk, B*Hk)
 // ---------------------------------------------------------------------------
 
-template <typename T, int DP, int BQ, int BK>
+template <typename T, int DP, int BQ, int BK, bool MASK>
 __global__ void __launch_bounds__(kThreads)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, const T* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            T* __restrict__ dk, T* __restrict__ dv, Dims dm, float scale,
-           int causal, Dropout dr) {
+           int causal, Dropout dr, Mask mk) {
   constexpr int RK = BK / 16, CQ = BQ / 16, CD = DP / 16;
   constexpr int KLD = DP + 1, QLD = BQ + 1, PLD = BQ + 1;
   extern __shared__ float smem[];
@@ -472,8 +520,16 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < CQ; ++j) {
           const int rl = tx + 16 * j, r = q0 + rl;
-          const bool ok = c < dm.Sk && (!causal || c <= r + offset);
-          const float p = ok ? expf(st[i][j] * scale - lse_s[rl]) : 0.f;
+          float p;
+          if constexpr (MASK) {
+            p = 0.f;
+            if (visible(mk, dm, b, r, c, causal, offset))
+              p = mk.bias ? expf(biased(st[i][j], scale, mk, dm, b, h, r, c) - lse_s[rl])
+                          : expf(st[i][j] * scale - lse_s[rl]);
+          } else {
+            const bool ok = c < dm.Sk && (!causal || c <= r + offset);
+            p = ok ? expf(st[i][j] * scale - lse_s[rl]) : 0.f;
+          }
           float pv = p, dpv = dpt[i][j];
           if (dr.on) {
             const bool kp = keep(seed_bh, r, c, dm.Sk, dr.thresh);
@@ -560,27 +616,30 @@ cudaError_t launch_pass(Pass pass, const Args& a, cudaStream_t s) {
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   const int nq = (a.dm.Sq + BQ - 1) / BQ, nk = (a.dm.Sk + BK - 1) / BK;
-  static bool smem_set[3] = {false, false, false};  // per (T, DP, pass)
+  // per (T, DP): by pass, without and with the Mask
+  static bool smem_set[3][2] = {};
+  const bool mask = a.mk.bias || a.mk.qseg || a.mk.dbias;
   cudaError_t err;
   if (pass == Pass::kFwd) {
     constexpr size_t smem = fwd_smem<DP>();
-    auto kern = fwd_kernel<T, DP, BQ, BK>;
-    if ((err = allow_smem(kern, smem, smem_set[0])) != cudaSuccess) return err;
+    auto kern = mask ? fwd_kernel<T, DP, BQ, BK, true> : fwd_kernel<T, DP, BQ, BK, false>;
+    if ((err = allow_smem(kern, smem, smem_set[0][mask])) != cudaSuccess) return err;
     kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
-        q, k, v, static_cast<T*>(a.out), a.lse_out, a.dm, a.scale, a.causal, a.dr);
+        q, k, v, static_cast<T*>(a.out), a.lse_out, a.dm, a.scale, a.causal, a.dr, a.mk);
   } else if (pass == Pass::kDq) {
     constexpr size_t smem = dq_smem<DP>();
-    auto kern = dq_kernel<T, DP, BQ, BK>;
-    if ((err = allow_smem(kern, smem, smem_set[1])) != cudaSuccess) return err;
+    auto kern = mask ? dq_kernel<T, DP, BQ, BK, true> : dq_kernel<T, DP, BQ, BK, false>;
+    if ((err = allow_smem(kern, smem, smem_set[1][mask])) != cudaSuccess) return err;
     kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.out), a.dm, a.scale, a.causal, a.dr);
+        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.out), a.dm, a.scale, a.causal, a.dr,
+        a.mk);
   } else {
     constexpr size_t smem = dkv_smem<DP>();
-    auto kern = dkv_kernel<T, DP, BQ, BK>;
-    if ((err = allow_smem(kern, smem, smem_set[2])) != cudaSuccess) return err;
+    auto kern = mask ? dkv_kernel<T, DP, BQ, BK, true> : dkv_kernel<T, DP, BQ, BK, false>;
+    if ((err = allow_smem(kern, smem, smem_set[2][mask])) != cudaSuccess) return err;
     kern<<<dim3(nk, a.dm.B * a.dm.Hk), kThreads, smem, s>>>(
         q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dm,
-        a.scale, a.causal, a.dr);
+        a.scale, a.causal, a.dr, a.mk);
   }
   return cudaGetLastError();
 }
@@ -609,14 +668,17 @@ int run(Pass pass, Args a, int dtype, void* stream) {
 
 // Each entry launches on `stream` without synchronising and returns the
 // launch's CUDA error code (0 on success). Tensors as in the header
-// comment; `seed` is a device pointer to one int32 (NULL without dropout).
+// comment; `seed` is a device pointer to one int32 (NULL without dropout);
+// `bias` (NULL: none) with its four element strides, and `qseg` / `kseg`
+// (NULL: none) with `seg_causal`, as Mask in flash_common.cuh; `dbias`
+// (dq only; NULL: not emitted) a zeroed fp32 [B, Hq, Sq, Sk].
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int Sq, int Sk, int Hq,
                          int Hk, int D, float scale, int causal, int drop_on,
                          int thresh, float keep_scale, const void* seed,
-                         int dtype, void* stream) {
+                         PTK_MASK_PARAMS, int dtype, void* stream) {
   Args a = make_args(q, k, v, B, Sq, Sk, Hq, Hk, D, scale, causal, drop_on,
-                     thresh, keep_scale, seed);
+                     thresh, keep_scale, seed, PTK_MASK_ARGS);
   a.out = out;
   a.lse_out = static_cast<float*>(lse);
   return run(Pass::kFwd, a, dtype, stream);
@@ -627,13 +689,15 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v,
                         void* dq, int B, int Sq, int Sk, int Hq, int Hk,
                         int D, float scale, int causal, int drop_on,
                         int thresh, float keep_scale, const void* seed,
-                        int dtype, void* stream) {
+                        PTK_MASK_PARAMS, void* dbias, int dtype,
+                        void* stream) {
   Args a = make_args(q, k, v, B, Sq, Sk, Hq, Hk, D, scale, causal, drop_on,
-                     thresh, keep_scale, seed);
+                     thresh, keep_scale, seed, PTK_MASK_ARGS);
   a.dout = dout;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.out = dq;
+  a.mk.dbias = static_cast<float*>(dbias);
   return run(Pass::kDq, a, dtype, stream);
 }
 
@@ -642,10 +706,10 @@ extern "C" int flash_dkv(const void* q, const void* k, const void* v,
                          const void* delta, void* dk, void* dv, int B,
                          int Sq, int Sk, int Hq, int Hk, int D, float scale,
                          int causal, int drop_on, int thresh,
-                         float keep_scale, const void* seed, int dtype,
-                         void* stream) {
+                         float keep_scale, const void* seed,
+                         PTK_MASK_PARAMS, int dtype, void* stream) {
   Args a = make_args(q, k, v, B, Sq, Sk, Hq, Hk, D, scale, causal, drop_on,
-                     thresh, keep_scale, seed);
+                     thresh, keep_scale, seed, PTK_MASK_ARGS);
   a.dout = dout;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);

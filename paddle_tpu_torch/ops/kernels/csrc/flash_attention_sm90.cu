@@ -15,6 +15,16 @@
 //   `_mix_seed`, bit for bit, with lse from the undropped p.
 // Here additionally: bf16 only, D a multiple of 8 up to 128 (zero-filled
 // by TMA to DP = 64 or 128), 16-byte aligned operands.
+// The additive bias, the segment words and the dq pass's dbias output
+// (flash_common.cuh, Mask) are template arguments of every kernel (BIAS,
+// SEG; dq's BIAS = 2 also emits dbias), so the instantiations without them
+// keep their registers and wgmma waits. Simple, not fast: each consumer
+// thread reads the bias and the segment words of its accumulator elements
+// with plain global loads at their (row, col), guarded to row < Sq and key
+// < Sk, on every tile (TMA zero-fills only the tiles); with segments every
+// tile is masked element by element. The bias joins in natural units,
+// (s scale + b) log2(e) in the forward's exp2 domain, and as
+// exp(fl(fl(s scale) + b) - lse) in the backward, the plain version's order.
 //
 // What bounds it: at GPT-2's training shape (B*H = 96, S = 1024, D = 64,
 // causal) the forward does 12.9 GFLOP on 50 MB (13 us at 989 TFLOP/s,
@@ -82,6 +92,22 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+// segment words of rows past Sq and keys past Sk: their ids (>> 16) are
+// negative and differ, so they see nothing (the reference's padding words)
+constexpr int kNoQuery = -(1 << 20);
+constexpr int kNoKey = -(2 << 20);
+
+__device__ __forceinline__ int seg_word(const int* seg, int b, int n, int i,
+                                        int none) {
+  return i < n ? seg[static_cast<size_t>(b) * n + i] : none;
+}
+
+// The bias row of (batch b, head h, query row): bias_at(mk, b, h, row, c)
+// is row_ptr[c * sk]; NULL for a row past Sq (its bias reads as 0).
+__device__ __forceinline__ const float* bias_row(const Mask& mk, const Dims& dm,
+                                                 int b, int h, int row) {
+  return row < dm.Sq ? mk.bias + b * mk.sb + h * mk.sh + row * mk.sq : nullptr;
+}
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>(
@@ -154,13 +180,13 @@ struct FwdTile {
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 128;
 };
 
-template <int DP>
+template <int DP, bool BIAS, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
                 float* __restrict__ lse, Dims dm, float scale_log2,
-                int causal, Dropout dr) {
+                int causal, Dropout dr, float scale, Mask mk) {
   using T = FwdTile<DP>;
   constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -226,6 +252,19 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const int row_base = q0 + 64 * cw;               // first row of this warpgroup
     const uint32_t seed_bh =
         dr.on ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+    [[maybe_unused]] int qw[2] = {0, 0};             // segment words of the two rows
+    if constexpr (SEG) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        qw[r] = seg_word(mk.qseg, b, dm.Sq, row_base + frag_row(w, l, 2 * r), kNoQuery);
+    }
+    [[maybe_unused]] const float* brow[2] = {nullptr, nullptr};   // bias rows
+    [[maybe_unused]] const int bsk = static_cast<int>(mk.sk);     // 0 or 1
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        brow[r] = bias_row(mk, dm, b, h, row_base + frag_row(w, l, 2 * r));
+    }
 
     float o[DP / 2];
 #pragma unroll
@@ -257,18 +296,31 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(sc);
 
-      // scale into the exp2 domain; mask where the diagonal or an edge cuts
-      const bool cut = k0 + BK > dm.Sk ||
+      // scale (and add the bias) into the exp2 domain; mask where the
+      // diagonal or an edge cuts, and everywhere under segments
+      const bool cut = SEG || k0 + BK > dm.Sk ||
                        (causal && k0 + BK - 1 > row_base + offset);
 #pragma unroll
       for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          float x = sc[4 * i + j] * scale_log2;
+          float x;
+          if constexpr (BIAS) {
+            const int c = k0 + frag_col(l, i, j);
+            const float* br = brow[j >> 1];
+            const float bv = br && c < dm.Sk ? br[c * bsk] : 0.f;
+            x = __fmul_rn(__fadd_rn(__fmul_rn(sc[4 * i + j], scale), bv), kLog2e);
+          } else {
+            x = sc[4 * i + j] * scale_log2;
+          }
           if (cut) {
             const int c = k0 + frag_col(l, i, j);
             const int r = row_base + frag_row(w, l, j);
-            if (c >= dm.Sk || (causal && c > r + offset)) x = -INFINITY;
+            bool dead = c >= dm.Sk || (causal && c > r + offset);
+            if constexpr (SEG)
+              dead = dead || !seg_sees(qw[j >> 1], seg_word(mk.kseg, b, dm.Sk, c, kNoKey),
+                                       mk.seg_causal);
+            if (dead) x = -INFINITY;
           }
           sc[4 * i + j] = x;
         }
@@ -362,7 +414,7 @@ struct DkvTile {
                               STAGES * (2 * Q_BYTES + STAT_BYTES) + 128;
 };
 
-template <int DP, bool DROP>
+template <int DP, bool DROP, bool BIAS, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
@@ -370,7 +422,7 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tdo,
                 const float* __restrict__ lse, const float* __restrict__ delta,
                 bf16* __restrict__ dk, bf16* __restrict__ dv, Dims dm,
-                float scale, int causal, Dropout dr) {
+                float scale, int causal, Dropout dr, Mask mk) {
   using T = DkvTile<DP>;
   constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -462,6 +514,21 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t v_addr = smem_u32(Vs) + 64 * cw * 128;
 
     const uint32_t seed = DROP ? static_cast<uint32_t>(dr.seed[0]) : 0u;
+    [[maybe_unused]] int kw[2] = {0, 0};             // segment words of the two keys
+    if constexpr (SEG) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        kw[r] = seg_word(mk.kseg, b, dm.Sk, key_base + frag_row(w, l, 2 * r), kNoKey);
+    }
+    // the bias column of each key (-1 past Sk: its bias reads as 0)
+    [[maybe_unused]] long long bkey[2] = {-1, -1};
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key_base + frag_row(w, l, 2 * r);
+        bkey[r] = key < dm.Sk ? key * mk.sk : -1;
+      }
+    }
     float dka[DP / 2], dva[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
@@ -510,6 +577,9 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       const float* dl = ls + BQ;
       const bool cut = causal && key_base + 63 > q0 + offset;
       const uint32_t seed_bh = DROP ? mix_seed(seed, bh) : 0u;
+      // this tile's q head's bias plane
+      [[maybe_unused]] const float* bplane =
+          BIAS ? mk.bias + b * mk.sb + (bh - b * dm.Hq) * mk.sh : nullptr;
       uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
       for (int i = 0; i < BQ / 8; ++i) {
@@ -524,9 +594,21 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           // exp(s scale - lse) in the plain version's order of rounding
           // (product, then difference): an argument off by a few ulp, as
           // exp2 with log2(e) folded in gives, flips the bf16 rounding of
-          // some large p
-          float p = expf(__fmul_rn(st[4 * i + j], scale) - ((j & 1) ? lsv.y : lsv.x));
-          if (cut && key > qr + offset) p = 0.f;
+          // some large p. The bias of (query qr, key) is read transposed.
+          float x = __fmul_rn(st[4 * i + j], scale);
+          if constexpr (BIAS)
+            x = __fadd_rn(x, qr < dm.Sq && bkey[j >> 1] >= 0
+                                 ? bplane[qr * mk.sq + bkey[j >> 1]]
+                                 : 0.f);
+          float p = expf(x - ((j & 1) ? lsv.y : lsv.x));
+          if constexpr (SEG) {
+            if ((cut && key > qr + offset) ||
+                !seg_sees(seg_word(mk.qseg, b, dm.Sq, qr, kNoQuery), kw[j >> 1],
+                          mk.seg_causal))
+              p = 0.f;
+          } else {
+            if (cut && key > qr + offset) p = 0.f;
+          }
           float dp = dpt[4 * i + j];
           pv[j] = p;
           if constexpr (DROP) {
@@ -585,7 +667,8 @@ struct DqTile {
   static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 128;
 };
 
-template <int DP, bool DROP>
+// BIAS: 0 none, 1 bias, 2 bias and dbias
+template <int DP, bool DROP, int BIAS, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
@@ -593,7 +676,7 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tdo,
                const float* __restrict__ lse, const float* __restrict__ delta,
                bf16* __restrict__ dq, Dims dm, float scale, int causal,
-               Dropout dr) {
+               Dropout dr, Mask mk) {
   using T = DqTile<DP>;
   constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -659,6 +742,26 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const int row_base = q0 + 64 * cw;               // first row of this warpgroup
     const uint32_t seed_bh =
         DROP ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+    [[maybe_unused]] int qw[2] = {0, 0};             // segment words of the two rows
+    if constexpr (SEG) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        qw[r] = seg_word(mk.qseg, b, dm.Sq, row_base + frag_row(w, l, 2 * r), kNoQuery);
+    }
+    // bias rows, and dbias rows (NULL past Sq)
+    [[maybe_unused]] const float* brow[2] = {nullptr, nullptr};
+    [[maybe_unused]] float* drow[2] = {nullptr, nullptr};
+    [[maybe_unused]] const int bsk = static_cast<int>(mk.sk);     // 0 or 1
+    if constexpr (BIAS > 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_base + frag_row(w, l, 2 * r);
+        brow[r] = bias_row(mk, dm, b, h, row);
+        if constexpr (BIAS == 2)
+          drow[r] = row < dm.Sq ? mk.dbias + (static_cast<size_t>(bh) * dm.Sq + row) * dm.Sk
+                                : nullptr;
+      }
+    }
 
     // lse and delta of the two rows this thread holds, read once: a row
     // that sees no key (lse = -inf) reads 0; a row past Sq +inf, so its p
@@ -718,8 +821,9 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(dpa);
 
       // dS = P (dP_dropped - delta), rounded to bf16 as the A fragments of
-      // dQ += dS K. Masks where the diagonal or the ragged key edge cuts:
-      // TMA zero-fills keys past Sk, whose s = 0 would give p = exp(-lse)
+      // dQ += dS K (and stored in fp32 as dbias). Masks where the diagonal
+      // or the ragged key edge cuts, and everywhere under segments: TMA
+      // zero-fills keys past Sk, whose s = 0 would give p = exp(-lse)
       const bool cut = k0 + BK > dm.Sk ||
                        (causal && k0 + BK - 1 > row_base + offset);
       uint32_t da[BK / 16][4];
@@ -732,12 +836,24 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           const int col = k0 + frag_col(l, i, j);
           // exp(s scale - lse) in the plain version's order of rounding, as
           // in dkv (exp2 flips the bf16 rounding of some large p)
-          float p = expf(__fmul_rn(sc[4 * i + j], scale) - ls[j >> 1]);
-          if (cut && (col >= dm.Sk || (causal && col > row + offset))) p = 0.f;
+          float x = __fmul_rn(sc[4 * i + j], scale);
+          if constexpr (BIAS > 0)
+            x = __fadd_rn(x, brow[j >> 1] && col < dm.Sk ? brow[j >> 1][col * bsk] : 0.f);
+          float p = expf(x - ls[j >> 1]);
+          if constexpr (SEG) {
+            if ((cut && (col >= dm.Sk || (causal && col > row + offset))) ||
+                !seg_sees(qw[j >> 1], seg_word(mk.kseg, b, dm.Sk, col, kNoKey),
+                          mk.seg_causal))
+              p = 0.f;
+          } else {
+            if (cut && (col >= dm.Sk || (causal && col > row + offset))) p = 0.f;
+          }
           float dp = dpa[4 * i + j];
           if constexpr (DROP)
             dp = keep(seed_bh, row, col, dm.Sk, dr.thresh) ? dp * dr.keep_scale : 0.f;
           ds[j] = p * (dp - dl[j >> 1]);
+          if constexpr (BIAS == 2)
+            if (drow[j >> 1] && col < dm.Sk) drow[j >> 1][col] = ds[j];
         }
         da[i >> 1][2 * (i & 1)] = pack_bf16(ds[0], ds[1]);
         da[i >> 1][2 * (i & 1) + 1] = pack_bf16(ds[2], ds[3]);
@@ -780,13 +896,18 @@ cudaError_t launch_fwd(const Args& a, cudaStream_t s) {
       (err = make_map_bshd(&tk, a.k, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess ||
       (err = make_map_bshd(&tv, a.v, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess)
     return err;
-  static bool smem_set = false;
-  auto kern = fwd_sm90_kernel<DP>;
-  if ((err = allow_smem(kern, T::SMEM, smem_set)) != cudaSuccess) return err;
+  // instantiation by (bias, segments)
+  static const decltype(&fwd_sm90_kernel<DP, false, false>) kerns[4] = {
+      fwd_sm90_kernel<DP, false, false>, fwd_sm90_kernel<DP, true, false>,
+      fwd_sm90_kernel<DP, false, true>, fwd_sm90_kernel<DP, true, true>};
+  static bool smem_set[4] = {};
+  const int var = (a.mk.bias ? 1 : 0) | (a.mk.qseg ? 2 : 0);
+  auto kern = kerns[var];
+  if ((err = allow_smem(kern, T::SMEM, smem_set[var])) != cudaSuccess) return err;
   const int nq = (d.Sq + T::BQ - 1) / T::BQ;
   kern<<<dim3(nq, d.B * d.Hq), kThreads, T::SMEM, s>>>(
       tq, tk, tv, static_cast<bf16*>(a.out), a.lse_out, d, a.scale * kLog2e,
-      a.causal, a.dr);
+      a.causal, a.dr, a.scale, a.mk);
   return cudaGetLastError();
 }
 
@@ -801,14 +922,20 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t s) {
       (err = make_map_bshd(&tk, a.k, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess ||
       (err = make_map_bshd(&tv, a.v, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess)
     return err;
-  static bool smem_set[2] = {false, false};          // per dropout off/on
-  const int drop = a.dr.on ? 1 : 0;
-  auto kern = drop ? dkv_sm90_kernel<DP, true> : dkv_sm90_kernel<DP, false>;
-  if ((err = allow_smem(kern, T::SMEM, smem_set[drop])) != cudaSuccess) return err;
+  // instantiation by (dropout, bias, segments)
+  static const decltype(&dkv_sm90_kernel<DP, false, false, false>) kerns[8] = {
+      dkv_sm90_kernel<DP, false, false, false>, dkv_sm90_kernel<DP, true, false, false>,
+      dkv_sm90_kernel<DP, false, true, false>, dkv_sm90_kernel<DP, true, true, false>,
+      dkv_sm90_kernel<DP, false, false, true>, dkv_sm90_kernel<DP, true, false, true>,
+      dkv_sm90_kernel<DP, false, true, true>, dkv_sm90_kernel<DP, true, true, true>};
+  static bool smem_set[8] = {};
+  const int var = (a.dr.on ? 1 : 0) | (a.mk.bias ? 2 : 0) | (a.mk.qseg ? 4 : 0);
+  auto kern = kerns[var];
+  if ((err = allow_smem(kern, T::SMEM, smem_set[var])) != cudaSuccess) return err;
   const int nk = (d.Sk + T::BK - 1) / T::BK;
   kern<<<dim3(nk, d.B * d.Hk), kThreads, T::SMEM, s>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), d, a.scale, a.causal, a.dr);
+      static_cast<bf16*>(a.dv), d, a.scale, a.causal, a.dr, a.mk);
   return cudaGetLastError();
 }
 
@@ -823,14 +950,24 @@ cudaError_t launch_dq(const Args& a, cudaStream_t s) {
       (err = make_map_bshd(&tk, a.k, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess ||
       (err = make_map_bshd(&tv, a.v, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess)
     return err;
-  static bool smem_set[2] = {false, false};          // per dropout off/on
-  const int drop = a.dr.on ? 1 : 0;
-  auto kern = drop ? dq_sm90_kernel<DP, true> : dq_sm90_kernel<DP, false>;
-  if ((err = allow_smem(kern, T::SMEM, smem_set[drop])) != cudaSuccess) return err;
+  // instantiation by (dropout, bias mode, segments); dbias needs a bias
+  if (a.mk.dbias && !a.mk.bias) return cudaErrorInvalidValue;
+  static const decltype(&dq_sm90_kernel<DP, false, 0, false>) kerns[12] = {
+      dq_sm90_kernel<DP, false, 0, false>, dq_sm90_kernel<DP, true, 0, false>,
+      dq_sm90_kernel<DP, false, 1, false>, dq_sm90_kernel<DP, true, 1, false>,
+      dq_sm90_kernel<DP, false, 2, false>, dq_sm90_kernel<DP, true, 2, false>,
+      dq_sm90_kernel<DP, false, 0, true>, dq_sm90_kernel<DP, true, 0, true>,
+      dq_sm90_kernel<DP, false, 1, true>, dq_sm90_kernel<DP, true, 1, true>,
+      dq_sm90_kernel<DP, false, 2, true>, dq_sm90_kernel<DP, true, 2, true>};
+  static bool smem_set[12] = {};
+  const int mode = a.mk.bias ? (a.mk.dbias ? 2 : 1) : 0;
+  const int var = (a.dr.on ? 1 : 0) + 2 * mode + (a.mk.qseg ? 6 : 0);
+  auto kern = kerns[var];
+  if ((err = allow_smem(kern, T::SMEM, smem_set[var])) != cudaSuccess) return err;
   const int nq = (d.Sq + T::BQ - 1) / T::BQ;
   kern<<<dim3(nq, d.B * d.Hq), kThreads, T::SMEM, s>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.out), d, a.scale,
-      a.causal, a.dr);
+      a.causal, a.dr, a.mk);
   return cudaGetLastError();
 }
 
@@ -853,14 +990,17 @@ bool valid(const Args& a, std::initializer_list<const void*> ptrs) {
 
 // Each entry launches on `stream` without synchronising and returns the
 // launch's CUDA error code (0 on success). bf16 tensors as in the header
-// comment; `seed` is a device pointer to one int32 (NULL without dropout).
+// comment; `seed` is a device pointer to one int32 (NULL without dropout);
+// the bias, segment and dbias arguments as flash_attention.cu's entries
+// take them.
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                               void* out, void* lse, int B, int Sq, int Sk,
                               int Hq, int Hk, int D, float scale, int causal,
                               int drop_on, int thresh, float keep_scale,
-                              const void* seed, void* stream) {
+                              const void* seed, PTK_MASK_PARAMS,
+                              void* stream) {
   Args a = make_args(q, k, v, B, Sq, Sk, Hq, Hk, D, scale, causal, drop_on,
-                     thresh, keep_scale, seed);
+                     thresh, keep_scale, seed, PTK_MASK_ARGS);
   a.out = out;
   a.lse_out = static_cast<float*>(lse);
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
@@ -875,13 +1015,14 @@ extern "C" int flash_dq_sm90(const void* q, const void* k, const void* v,
                              int Sk, int Hq, int Hk, int D, float scale,
                              int causal, int drop_on, int thresh,
                              float keep_scale, const void* seed,
-                             void* stream) {
+                             PTK_MASK_PARAMS, void* dbias, void* stream) {
   Args a = make_args(q, k, v, B, Sq, Sk, Hq, Hk, D, scale, causal, drop_on,
-                     thresh, keep_scale, seed);
+                     thresh, keep_scale, seed, PTK_MASK_ARGS);
   a.dout = dout;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);
   a.out = dq;
+  a.mk.dbias = static_cast<float*>(dbias);
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
   if (!valid(a, {q, k, v, dout, dq}))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -895,9 +1036,9 @@ extern "C" int flash_dkv_sm90(const void* q, const void* k, const void* v,
                               int Sq, int Sk, int Hq, int Hk, int D,
                               float scale, int causal, int drop_on,
                               int thresh, float keep_scale, const void* seed,
-                              void* stream) {
+                              PTK_MASK_PARAMS, void* stream) {
   Args a = make_args(q, k, v, B, Sq, Sk, Hq, Hk, D, scale, causal, drop_on,
-                     thresh, keep_scale, seed);
+                     thresh, keep_scale, seed, PTK_MASK_ARGS);
   a.dout = dout;
   a.lse = static_cast<const float*>(lse);
   a.delta = static_cast<const float*>(delta);

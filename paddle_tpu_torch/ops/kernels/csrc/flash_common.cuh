@@ -1,6 +1,7 @@
 // What the two flash-attention sources share: the problem's dimensions, the
-// dropout parameters and hash, the launch arguments, and the opt-in to
-// more than 48 KB of dynamic shared memory.
+// dropout parameters and hash, the additive bias and segment words (Mask),
+// the launch arguments, and the opt-in to more than 48 KB of dynamic
+// shared memory.
 //
 // The dropout hash is the reference's `_keep_block` / `_mix_seed`
 // (murmur3 finalisers), bit for bit: chip_smoke.py reads both routes'
@@ -44,6 +45,41 @@ __device__ __forceinline__ bool keep(uint32_t seed_bh, int row, int col,
   return static_cast<int>(h ^ 0x80000000u) >= thresh;
 }
 
+// The additive bias, the segment words and the dbias output of a launch
+// (the reference's `has_bias`, `has_seg` / `seg_causal` and `emit_dbias`).
+//   bias: fp32, element (b, h, q, k) at b*sb + h*sh + q*sq + k*sk; the
+//     wrapper passes a broadcast view, with stride 0 on broadcast dims, so
+//     no broadcast dim is materialised. Added to scale * (q . k) before the
+//     masks.
+//   qseg / kseg: [B, Sq] / [B, Sk] int32 words (`_encode_seg`): segment id
+//     in the high bits, the end-relative position biased by 0x8000 in the
+//     low 16. Query i sees key j iff their ids match and, under
+//     seg_causal, klow <= qlow (the per-segment diagonal).
+//   dbias: the dq pass writes ds (fp32, before its bf16 rounding) into a
+//     zeroed [B, Hq, Sq, Sk] buffer; tiles it skips stay zero.
+// Every read of bias or segment words, and every dbias store, is guarded
+// to q < Sq and k < Sk: TMA zero-fills the tiles' ragged edges, plain
+// loads do not.
+struct Mask {
+  const float* bias;                 // NULL: no bias
+  long long sb, sh, sq, sk;
+  const int* qseg;                   // NULL: no segments
+  const int* kseg;
+  int seg_causal;
+  float* dbias;                      // NULL: not emitted
+};
+
+__device__ __forceinline__ float bias_at(const Mask& mk, int b, int h, int q,
+                                         int k) {
+  return mk.bias[b * mk.sb + h * mk.sh + q * mk.sq + k * mk.sk];
+}
+
+// Query word qw sees key word kw (segment ids in the high bits).
+__device__ __forceinline__ bool seg_sees(int qw, int kw, int seg_causal) {
+  return (qw >> 16) == (kw >> 16) &&
+         (!seg_causal || (kw & 0xFFFF) <= (qw & 0xFFFF));
+}
+
 // The operands of one launch: a forward fills out / lse_out, a dq pass
 // dout / lse / delta / out (dq), a dkv pass dout / lse / delta / dk / dv.
 struct Args {
@@ -55,12 +91,15 @@ struct Args {
   float scale;
   int causal;
   Dropout dr;
+  Mask mk;
 };
 
 inline Args make_args(const void* q, const void* k, const void* v, int B,
                       int Sq, int Sk, int Hq, int Hk, int D, float scale,
                       int causal, int drop_on, int thresh, float keep_scale,
-                      const void* seed) {
+                      const void* seed, const void* bias, long long sb,
+                      long long sh, long long sq, long long sk,
+                      const void* qseg, const void* kseg, int seg_causal) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -69,8 +108,20 @@ inline Args make_args(const void* q, const void* k, const void* v, int B,
   a.scale = scale;
   a.causal = causal;
   a.dr = Dropout{drop_on, thresh, keep_scale, static_cast<const int*>(seed)};
+  a.mk = Mask{static_cast<const float*>(bias), sb, sh, sq, sk,
+              static_cast<const int*>(qseg), static_cast<const int*>(kseg),
+              seg_causal, nullptr};
   return a;
 }
+
+// The Mask parameters of a C entry, and the same names as make_args's
+// arguments.
+#define PTK_MASK_PARAMS                                                  \
+  const void *bias, long long bias_sb, long long bias_sh,               \
+      long long bias_sq, long long bias_sk, const void *qseg,           \
+      const void *kseg, int seg_causal
+#define PTK_MASK_ARGS \
+  bias, bias_sb, bias_sh, bias_sq, bias_sk, qseg, kseg, seg_causal
 
 // Opt a kernel into more than 48 KB of dynamic shared memory, once
 // (`done` is the flag of one kernel instantiation; no call happens inside

@@ -15,8 +15,9 @@ call ever needs the plain version.
 tensor goes to the plain version; a CUDA tensor launches the kernel or
 raises. There is no fallback from one to the other.
 
-The LayerNorm backward is plain PyTorch from the saved statistics, as
-the reference's ``_ln_bwd`` is plain XLA: ``LayerNormFunction``.
+The backwards are plain PyTorch from the saved statistics, as the
+reference's ``_rms_bwd`` and ``_ln_bwd`` are plain XLA:
+``RMSNormFunction`` and ``LayerNormFunction``.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import torch
 from . import _build
 
 __all__ = ["rms_norm", "rms_norm_plain", "layer_norm", "layer_norm_plain",
-           "LayerNormFunction"]
+           "RMSNormFunction", "LayerNormFunction"]
 
 _DTYPE_CODES = _build.DTYPE_CODES
 
@@ -99,6 +100,35 @@ def rms_norm(x: torch.Tensor, w: Optional[torch.Tensor], eps: float
 
 
 rms_norm.launches = 0
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """Differentiable RMSNorm over the last axis: the forward is
+    ``rms_norm`` (the kernel on the card); the backward is plain PyTorch
+    from the saved ``inv`` by the reference ``_rms_bwd``'s formulas
+    (dx = inv g - x inv^3 mean(g x) with g = dy w, in x's dtype; dw
+    summed in fp32 and cast to w's dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        x = x.contiguous()
+        y, inv = rms_norm(x, w, float(eps))
+        ctx.save_for_backward(x, w, inv)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, inv = ctx.saved_tensors
+        n = x.shape[-1]
+        dy2 = dy.reshape(-1, n).float()
+        x32 = x.reshape(-1, n).float()
+        inv = inv[:, None]
+        g = dy2 * w.float()[None, :] if w is not None else dy2
+        m = torch.mean(g * x32, dim=1, keepdim=True)
+        dx = inv * g - x32 * inv ** 3 * m
+        dw = torch.sum(dy2 * x32 * inv, dim=0).to(w.dtype) \
+            if w is not None and ctx.needs_input_grad[1] else None
+        return dx.reshape(x.shape).to(x.dtype), dw, None
 
 
 # ---------------------------------------------------------------------------

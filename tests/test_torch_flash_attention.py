@@ -11,7 +11,11 @@ Pallas kernels to XLA (tiles sum in another order); gradients at 1e-4
 (one more product of rounded values). The dropout keep-mask must equal
 ``dropout_keep_mask`` bit for bit. One test holds chip_smoke.py's own
 entry-wise check to account: the kernel's rounding passes it, planted
-faults do not.
+faults do not. The additive bias (with dbias), segment ids,
+``flash_attn_unpadded`` and the chunk entries are held against the
+reference's ``flash_attention_ext`` / ``flash_chunk_*`` at its own
+tolerances: outputs 3e-5, gradients 3e-4 (tests/test_pallas_flash_
+attention.py holds the Pallas kernels to a dense oracle there).
 """
 import ctypes
 import importlib.util
@@ -24,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu as paddle
 from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops.kernels import _build
@@ -146,14 +151,25 @@ def test_dropout_seed_comes_from_the_generator():
 
 
 def test_bias_and_segments_are_not_ported_yet():
+    """Once refused with NotImplementedError, a bias, segment ids and an
+    sdpa attn_mask now run: each call matches the plain version it
+    reaches, and a bool attn_mask is refused (it is not additive)."""
     q, k, v, _ = _t(*_inputs((1, 8, 8, 2, 2, 16, False)))
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention_ext(q, k, v, bias=torch.zeros(8, 8))
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention_ext(q, k, v, q_seg=torch.zeros(1, 8),
-                                k_seg=torch.zeros(1, 8))
-    with pytest.raises(NotImplementedError):
-        TF.scaled_dot_product_attention(q, k, v, attn_mask=torch.zeros(8, 8))
+    bias = torch.randn(8, 8, generator=torch.Generator().manual_seed(0))
+    out = tfa.flash_attention_ext(q, k, v, bias=bias)
+    ref, _ = tfa.flash_fwd_plain(q, k, v, False, 0.25, bias=bias)
+    assert torch.equal(out, ref)
+    seg = torch.tensor([[0, 0, 0, 1, 1, 2, 2, 2]])
+    out = tfa.flash_attention_ext(q, k, v, q_seg=seg, k_seg=seg)
+    words = tfa.encode_segments(seg)
+    ref, _ = tfa.flash_fwd_plain(q, k, v, False, 0.25,
+                                 seg=tfa.Segments(words, words, False))
+    assert torch.equal(out, ref)
+    out = TF.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    assert torch.equal(out, tfa.flash_fwd_plain(q, k, v, False, 0.25,
+                                                bias=bias)[0])
+    with pytest.raises(TypeError):
+        TF.scaled_dot_product_attention(q, k, v, attn_mask=bias > 0)
 
 
 def test_cpu_call_never_reaches_the_kernels(monkeypatch):
@@ -272,6 +288,61 @@ def test_chip_check_passes_kernel_rounding_and_rejects_planted_faults():
         cs.check_close("dq", dq_cut.bfloat16(), dq, rtol, quiet=True)
 
 
+def _dq_other_rounding(q, k, v, do, lse, delta, scale):
+    """Causal dq at Sq = Sk with the plain version's roundings in another
+    order, as a kernel may do it: p in the exp2 domain, ds as
+    p dP - p delta, so some ds entries round to the other bf16 neighbour."""
+    qf, kf, vf, dof = (x.float().transpose(1, 2) for x in (q, k, v, do))
+    n = q.shape[1]
+    p = torch.exp2((qf @ kf.transpose(-1, -2) * scale - lse[..., None])
+                   * math.log2(math.e))
+    p = p.masked_fill(torch.arange(n)[None, :] > torch.arange(n)[:, None],
+                      0.0)
+    ds = p * (dof @ vf.transpose(-1, -2)) - p * delta[..., None]
+    return ((ds.bfloat16().float() @ kf) * scale).transpose(1, 2).bfloat16()
+
+
+def test_exact_check_passes_another_rounding_and_rejects_planted_faults():
+    """chip_smoke.py's check_exact (the bf16 backward at Llama's shape
+    against fp64, relative to the plain version's own distance): dq with
+    the plain roundings in another order passes, while dq missing key
+    tile 0 for the later half of the rows, and dk and dv missing the last
+    q tile, fail."""
+    cs = _chip_smoke()
+    b, s, h, d = 1, 512, 2, 64
+    rng = np.random.RandomState(6)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (b, s, h, d)).astype(np.float32)).bfloat16() for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = tfa.flash_fwd_plain(q, k, v, True, scale)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = tfa.flash_dq_plain(q, k, v, do, lse, delta, True, scale)
+    dk, dv = tfa.flash_dkv_plain(q, k, v, do, lse, delta, True, scale)
+    edq, edk, edv = cs.exact_bwd(q, k, v, do, lse, delta, True, scale)
+    ratio = cs.BWD_EXACT_RATIO
+    other = _dq_other_rounding(q, k, v, do, lse, delta, scale)
+    assert not torch.equal(other, dq)
+    cs.check_exact("dq", other, dq, edq, ratio, quiet=True)
+    for got, ex in ((dq, edq), (dk, edk), (dv, edv)):
+        cs.check_exact("plain", got, got, ex, ratio, quiet=True)
+
+    dq_tile0 = tfa.flash_dq_plain(q, k[:, :64].contiguous(),
+                                  v[:, :64].contiguous(), do, lse, delta,
+                                  False, scale)
+    dq_cut = dq.float()
+    dq_cut[:, s // 2:] -= dq_tile0[:, s // 2:].float()
+    with pytest.raises(AssertionError):
+        cs.check_exact("dq", dq_cut.bfloat16(), dq, edq, ratio, quiet=True)
+    do_cut, delta_cut = do.clone(), delta.clone()
+    do_cut[:, -64:] = 0
+    delta_cut[..., -64:] = 0
+    dk_cut, dv_cut = tfa.flash_dkv_plain(q, k, v, do_cut, lse, delta_cut,
+                                         True, scale)
+    for got, ref, ex in ((dk_cut, dk, edk), (dv_cut, dv, edv)):
+        with pytest.raises(AssertionError):
+            cs.check_exact("dkv", got, ref, ex, ratio, quiet=True)
+
+
 def test_llama_forward_matches_reference():
     """Llama's full-context forward now attends through the flash
     functional: llama_tiny (GQA 4/2) against paddle_tpu's forward."""
@@ -383,15 +454,54 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
         assert codes == {_build.DTYPE_CODES[dtype]}
 
 
+def _all_counters():
+    return [c for w in (tfa.flash_fwd, tfa.flash_dq, tfa.flash_dkv)
+            for c in (w, w.wgmma, w.bias, w.wgmma_bias)]
+
+
 def test_cpu_call_counts_no_launch_on_either_route():
-    counters = (tfa.flash_fwd, tfa.flash_fwd.wgmma, tfa.flash_dq,
-                tfa.flash_dq.wgmma, tfa.flash_dkv, tfa.flash_dkv.wgmma)
+    counters = _all_counters()
     before = [c.launches for c in counters]
     q, k, v, _ = (t.bfloat16().requires_grad_()
                   for t in _t(*_inputs(CASES[1])))
     TF.scaled_dot_product_attention(q, k, v, is_causal=True).float().sum() \
         .backward()
+    mask = torch.zeros(q.shape[0], 1, 1, k.shape[1], dtype=q.dtype)
+    TF.scaled_dot_product_attention(q, k, v, attn_mask=mask).float().sum() \
+        .backward()
     assert [c.launches for c in counters] == before
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "sm90"),
+                                         (torch.float32, "fma")])
+def test_bias_launches_count_on_their_own_instantiation(monkeypatch, dtype,
+                                                        entry):
+    """A launch with a bias counts on its route's bias counter
+    (``.wgmma_bias`` or ``.bias``) and on no other; a launch with segment
+    words and no bias counts on the bias-free counter."""
+    libs = {n: _fake_library(n)
+            for n in ("flash_attention", "flash_attention_sm90")}
+    monkeypatch.setattr(_build, "load", libs.__getitem__)
+    monkeypatch.setattr(_build, "stream", lambda t: ctypes.c_void_p(0))
+    q, k, v = _operands(dtype, 64, 4, 2, False)
+    do = q.clone()
+    lse = torch.zeros(1, 4, 8)
+    bias = torch.zeros(1, 1, 1, 8)
+    words = tfa.encode_segments(torch.zeros(1, 8, dtype=torch.int32))
+    seg = tfa.Segments(words, words, False)
+    wrappers = (tfa.flash_fwd, tfa.flash_dq, tfa.flash_dkv)
+    base = [w.wgmma if entry == "sm90" else w for w in wrappers]
+    own = [w.wgmma_bias if entry == "sm90" else w.bias for w in wrappers]
+    for mask, moves in (((bias, None), own), ((None, seg), base)):
+        counters = _all_counters()
+        before = [c.launches for c in counters]
+        tfa._fwd_launch(q, k, v, False, 0.125, 0.0, None, *mask)
+        tfa._dq_launch(q, k, v, do, lse, lse, False, 0.125, 0.0, None, *mask)
+        tfa._dkv_launch(q, k, v, do, lse, lse, False, 0.125, 0.0, None,
+                        *mask)
+        moved = [c.launches - b for c, b in zip(counters, before)]
+        assert moved == [1 if any(c is m for m in moves) else 0
+                         for c in counters]
 
 
 def _wgmma_fwd(q, k, v, scale, causal, block=128, ln2=True):
@@ -556,3 +666,302 @@ def test_ptxas_report_reads_registers_spills_and_wgmma_waits():
     assert rep["warnings"] == [
         "ptxas warning : (C7512) wgmma serialized in "
         "'fwd_sm90_kernel<128>'"]
+
+
+# ---------------------------------------------------------------------------
+# additive bias, dbias and segment ids, against the reference's
+# flash_attention_ext in interpret mode (tests/test_pallas_flash_attention.py
+# holds those Pallas kernels to a dense oracle at the same tolerances)
+# ---------------------------------------------------------------------------
+
+REF_FWD = dict(rtol=3e-5, atol=3e-5)
+REF_BWD = dict(rtol=3e-4, atol=3e-4)
+_SEED0 = np.zeros((1,), np.int32)
+
+
+def _ref_ext(q, k, v, do, bias=None, seed=_SEED0, seg=None, causal=True,
+             scale=None, rate=0.0):
+    """The reference's out and (dq, dk, dv[, dbias])."""
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
+    qs, ks = (None, None) if seg is None else (jnp.asarray(seg[0]),
+                                               jnp.asarray(seg[1]))
+    args = [jnp.asarray(x) for x in (q, k, v)]
+    if bias is not None:
+        args.append(jnp.asarray(bias))
+
+    def f(*a):
+        return jfa.flash_attention_ext(
+            a[0], a[1], a[2], a[3] if bias is not None else None,
+            jnp.asarray(seed), qs, ks, causal, scale, rate, 128, 128, True)
+    out, vjp = jax.vjp(f, *args)
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _port_ext(q, k, v, do, bias=None, seed=_SEED0, seg=None, causal=True,
+              scale=None, rate=0.0):
+    """The port's out and (dq, dk, dv[, dbias]) through autograd."""
+    ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    tb = None if bias is None else torch.from_numpy(bias).requires_grad_()
+    qs, ks = (None, None) if seg is None else map(torch.from_numpy, seg)
+    out = tfa.flash_attention_ext(*ts, bias=tb, seed=torch.from_numpy(seed),
+                                  q_seg=qs, k_seg=ks, causal=causal,
+                                  scale=scale, dropout_rate=rate)
+    out.backward(torch.from_numpy(do))
+    grads = [t.grad for t in ts] + ([tb.grad] if tb is not None else [])
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+def _hold(got, ref):
+    np.testing.assert_allclose(got[0], ref[0], **REF_FWD)
+    assert len(got[1]) == len(ref[1])
+    for i, (g, r) in enumerate(zip(got[1], ref[1])):
+        assert g.shape == r.shape
+        np.testing.assert_allclose(g, r, err_msg=f"grad {i}", **REF_BWD)
+
+
+def _qkvdo(b, sq, sk, hq, hk, d, seed, scale=1.0):
+    rng = np.random.RandomState(seed)
+    mk = lambda *s: (rng.standard_normal(s) * scale).astype(  # noqa: E731
+        np.float32)
+    return mk(b, sq, hq, d), mk(b, sk, hk, d), mk(b, sk, hk, d), \
+        mk(b, sq, hq, d)
+
+
+@pytest.mark.parametrize("bshape", [(2, 4, 256, 256), (1, 4, 256, 256),
+                                    (2, 1, 1, 256), (256, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bias_matches_reference(bshape):
+    """test_bias_in_kernel's four bias shapes (full, broadcast batch, the
+    additive key mask's [B,1,1,S], 2-D): out, dq, dk, dv and dbias, the
+    full one from the dq pass and the others summed by
+    flash_dbias_broadcast."""
+    q, k, v, do = _qkvdo(2, 256, 256, 4, 2, 64, seed=3)
+    bias = (np.random.RandomState(4).standard_normal(bshape) * 0.5).astype(
+        np.float32)
+    _hold(_port_ext(q, k, v, do, bias), _ref_ext(q, k, v, do, bias))
+
+
+@pytest.mark.parametrize("bshape", [(2, 2, 128, 128), (1, 2, 128, 128)],
+                         ids=["full", "broadcast"])
+def test_bias_with_dropout_matches_reference(bshape):
+    """Dropout under a bias: the same keep-mask bit for bit, in the
+    forward, the dq and dkv passes and both dbias paths."""
+    q, k, v, do = _qkvdo(2, 128, 128, 2, 2, 32, seed=8)
+    bias = (np.random.RandomState(9).standard_normal(bshape) * 0.5).astype(
+        np.float32)
+    seed = np.asarray([-987654], np.int32)
+    _hold(_port_ext(q, k, v, do, bias, seed=seed, causal=False, rate=0.2),
+          _ref_ext(q, k, v, do, bias, seed=seed, causal=False, rate=0.2))
+
+
+def _packed_segments(lens, h, d=64, seed=11):
+    total = sum(lens)
+    q, k, v, do = _qkvdo(1, total, total, h, h, d, seed, scale=0.3)
+    seg = np.repeat(np.arange(len(lens), dtype=np.int32), lens)[None, :]
+    return q, k, v, do, seg
+
+
+@pytest.mark.parametrize("hq,hk,causal", [(2, 2, False), (2, 2, True),
+                                          (4, 2, True)])
+def test_segments_match_reference(hq, hk, causal):
+    """TestVarlenSegments's packing (lengths 5, 9, 2), MHA and GQA,
+    causal (each segment's own diagonal) and not: out, dq, dk, dv."""
+    q, k, v, do, seg = _packed_segments([5, 9, 2], hq)
+    k, v = np.ascontiguousarray(k[:, :, :hk]), np.ascontiguousarray(
+        v[:, :, :hk])
+    _hold(_port_ext(q, k, v, do, seg=(seg, seg), causal=causal),
+          _ref_ext(q, k, v, do, seg=(seg, seg), causal=causal))
+
+
+def test_varlen_causal_ragged_qk_lengths_match_reference():
+    """test_varlen_causal_ragged_qk_lengths: q segments of 2 and 4 over k
+    segments of 4 and 4, so each segment has its own (Lk - Lq) diagonal,
+    which one global diagonal would get wrong for the second."""
+    q, _, _, do = _qkvdo(1, 6, 6, 2, 2, 64, seed=13, scale=0.3)
+    _, k, v, _ = _qkvdo(1, 8, 8, 2, 2, 64, seed=14, scale=0.3)
+    seg_q = np.repeat(np.arange(2, dtype=np.int32), [2, 4])[None, :]
+    seg_k = np.repeat(np.arange(2, dtype=np.int32), [4, 4])[None, :]
+    _hold(_port_ext(q, k, v, do, seg=(seg_q, seg_k)),
+          _ref_ext(q, k, v, do, seg=(seg_q, seg_k)))
+
+
+def test_encode_segments_matches_reference():
+    seg = np.array([[0, 0, 0, 1, 4, 4, 7, 7, 7, 7],
+                    [2, 2, 2, 2, 2, 2, 2, 2, 2, 3]], np.int32)
+    ref = np.asarray(jfa._encode_seg(jnp.asarray(seg)))
+    np.testing.assert_array_equal(
+        tfa.encode_segments(torch.from_numpy(seg)).numpy(), ref)
+
+
+@pytest.mark.parametrize("cover", [10, 7], ids=["all", "tail-uncovered"])
+def test_flash_attn_unpadded_matches_reference(cover):
+    """The packed API ([total, H, D] + cu_seqlens) against the
+    reference's, per-segment causal; with ``cover`` < 10 the last q
+    tokens lie past cu_seqlens[-1] and k/v hold only the covered ones:
+    those rows see no key and give 0."""
+    from paddle_tpu.nn.functional.flash_attention import \
+        flash_attn_unpadded as jax_unpadded
+    rng = np.random.RandomState(15)
+    q, k, v = (rng.standard_normal((10, 2, 32)).astype(np.float32)
+               for _ in range(3))
+    k, v = k[:cover], v[:cover]
+    cu = np.array([0, 3, cover], np.int32)
+    scale = 1.0 / math.sqrt(32)
+    ref, _ = jax_unpadded(*(paddle.to_tensor(x) for x in (q, k, v, cu, cu)),
+                          cover, cover, scale, causal=True)
+    got, sm = TF.flash_attn_unpadded(*(torch.from_numpy(x)
+                                       for x in (q, k, v, cu, cu)),
+                                     cover, cover, scale, causal=True)
+    assert sm is None
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **REF_FWD)
+    if cover < 10:
+        assert (got.numpy()[cover:] == 0).all()
+
+
+def test_rows_masked_by_an_infinite_bias_give_zero_and_finite_grads():
+    """A bias whose chosen rows are all -inf: those rows see no key, so
+    out = 0 and lse = -inf, and no gradient (dbias included) is NaN; the
+    rest matches the reference."""
+    q, k, v, do = _qkvdo(1, 64, 80, 2, 2, 32, seed=16)
+    bias = (np.random.RandomState(17).standard_normal((1, 2, 64, 80))
+            * 0.5).astype(np.float32)
+    dead = [3, 40]
+    bias[:, :, dead] = -np.inf
+    got = _port_ext(q, k, v, do, bias, causal=False)
+    _hold(got, _ref_ext(q, k, v, do, bias, causal=False))
+    assert (got[0][:, dead] == 0).all()
+    assert all(np.isfinite(g).all() for g in got[1])
+    assert (got[1][0][:, dead] == 0).all() and (got[1][3][:, :, dead] == 0).all()
+    _, lse = tfa.flash_fwd_plain(*_t(q, k, v), False, 1 / math.sqrt(32),
+                                 bias=torch.from_numpy(bias))
+    assert torch.isneginf(lse[:, :, dead]).all()
+
+
+def _card_branch_on_the_cpu(monkeypatch, planted):
+    """Run the wrappers' card branch on CPU tensors: dispatch always takes
+    the launch function, and the launches run the plain versions; a dq
+    launch asked for dbias plants ``planted`` into it (a fault a wrong
+    kernel could carry). Returns the dbias flags the dq launches got."""
+    asked = []
+
+    def dq_launch(q, k, v, do, lse, delta, causal, scale, rate, seed,
+                  bias=None, seg=None, dbias=False):
+        asked.append(dbias)
+        out = tfa.flash_dq_plain(q, k, v, do, lse, delta, causal, scale,
+                                 rate, seed, bias, seg, dbias)
+        return (out[0], out[1] + planted) if dbias else out
+    monkeypatch.setattr(_build, "dispatch",
+                        lambda plain, launch, *a: launch(*a))
+    monkeypatch.setattr(tfa, "_fwd_launch", tfa.flash_fwd_plain)
+    monkeypatch.setattr(tfa, "_dq_launch", dq_launch)
+    monkeypatch.setattr(tfa, "_dkv_launch", tfa.flash_dkv_plain)
+    return asked
+
+
+def test_dbias_is_computed_only_when_the_bias_requires_grad(monkeypatch):
+    """On the card branch a bias that needs no gradient (BERT's mask)
+    asks the dq kernel for no dbias, so a fault planted in the kernel's
+    dbias cannot show; a full bias that requires grad takes the kernel's
+    dbias (the planted fault shows in bias.grad), and a broadcast one the
+    plain broadcast sum (it does not)."""
+    q, k, v, do = _t(*_qkvdo(1, 32, 32, 2, 2, 16, seed=18))
+    asked = _card_branch_on_the_cpu(monkeypatch, planted=1.0)
+    for shape, needs, want, planted in [
+            ((1, 2, 32, 32), False, [False], False),
+            ((1, 2, 32, 32), True, [True], True),
+            ((1, 1, 1, 32), True, [False], False)]:
+        asked.clear()
+        bias = torch.zeros(shape, requires_grad=needs)
+        qq = q.clone().requires_grad_()
+        tfa.flash_attention_ext(qq, k, v, bias=bias).backward(do)
+        assert asked == want
+        assert (bias.grad is not None) == needs
+        if needs:
+            ref = tfa.flash_dbias_broadcast(
+                q, k, v, do, *_lse_delta(q, k, v, do), bias.detach(),
+                False, 0.25)
+            np.testing.assert_allclose(
+                bias.grad.numpy(), (ref + float(planted)).numpy(),
+                rtol=1e-5, atol=1e-5)
+
+
+def _lse_delta(q, k, v, do):
+    out, lse = tfa.flash_fwd_plain(q, k, v, False, 0.25)
+    return lse, tfa._delta(do, out)
+
+
+def test_chunk_entries_match_reference_and_sum_to_the_full_gradients():
+    """flash_chunk_fwd / flash_chunk_bwd against the reference's on one
+    chunk; and over two key chunks, merged by log-sum-exp, the chunks'
+    (dq, dk, dv) under the global lse and delta sum to the full
+    gradients."""
+    q, k, v, do = _qkvdo(1, 96, 160, 4, 2, 32, seed=19)
+    scale = 1.0 / math.sqrt(32)
+    out_ref, lse_ref = jfa.flash_chunk_fwd(q, k, v, True, scale,
+                                           interpret=True)
+    out, lse = tfa.flash_chunk_fwd(*_t(q, k, v), True, scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_ref), **REF_FWD)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), **REF_FWD)
+    delta = np.einsum("bshd,bshd->bhs", do, np.asarray(out_ref))
+    ref = jfa.flash_chunk_bwd(q, k, v, do, lse_ref, delta, True, scale,
+                              interpret=True)
+    got = tfa.flash_chunk_bwd(*_t(q, k, v, do), torch.from_numpy(
+        np.array(lse_ref)), torch.from_numpy(delta), True, scale)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **REF_BWD)
+
+    # two chunks of keys: [0, 100) causal-free for every row (all rows
+    # see them: Sk - Sq = 64 >= 99 is false, so keep the global diagonal
+    # by passing the chunks as non-causal over a non-causal whole)
+    tq, tk, tv, tdo = _t(q, k, v, do)
+    full_out, full_lse = tfa.flash_chunk_fwd(tq, tk, tv, False, scale)
+    parts = [(tk[:, :100], tv[:, :100]), (tk[:, 100:], tv[:, 100:])]
+    lses = [tfa.flash_chunk_fwd(tq, a, b, False, scale)[1]
+            for a, b in parts]
+    merged = torch.logsumexp(torch.stack(lses), 0)
+    torch.testing.assert_close(merged, full_lse, rtol=1e-5, atol=1e-5)
+    full_delta = tfa._delta(tdo, full_out)
+    grads = [tfa.flash_chunk_bwd(tq, a, b, tdo, merged, full_delta, False,
+                                 scale) for a, b in parts]
+    dq = grads[0][0] + grads[1][0]
+    dk = torch.cat([grads[0][1], grads[1][1]], 1)
+    dv = torch.cat([grads[0][2], grads[1][2]], 1)
+    want = tfa.flash_chunk_bwd(tq, tk, tv, tdo, full_lse, full_delta, False,
+                               scale)
+    for g, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_launches_pass_bias_strides_segment_words_and_dbias(monkeypatch):
+    """The mask arguments of each C entry: a [B,1,1,Sk] bias crosses as a
+    pointer with element strides (Sk, 0, 0, 1), never expanded; a bf16
+    bias is cast to fp32 first; segment words as two pointers with
+    seg_causal; dq's dbias pointer only when asked for, into a zeroed fp32
+    [B,Hq,Sq,Sk] buffer."""
+    libs = {n: _fake_library(n)
+            for n in ("flash_attention", "flash_attention_sm90")}
+    monkeypatch.setattr(_build, "load", libs.__getitem__)
+    monkeypatch.setattr(_build, "stream", lambda t: ctypes.c_void_p(0))
+    q, k, v = _operands(torch.bfloat16, 64, 4, 2, False)
+    do = q.clone()
+    lse = torch.zeros(1, 4, 8)
+    bias = torch.zeros(1, 1, 1, 8, dtype=torch.bfloat16)
+    words = tfa.encode_segments(torch.zeros(1, 8, dtype=torch.int32))
+    seg = tfa.Segments(words, words, True)
+    tfa._fwd_launch(q, k, v, False, 0.125, 0.0, None, bias, seg)
+    _, db = tfa._dq_launch(q, k, v, do, lse, lse, False, 0.125, 0.0, None,
+                           bias, seg, True)
+    tfa._dq_launch(q, k, v, do, lse, lse, False, 0.125, 0.0, None, bias)
+    calls = libs["flash_attention_sm90"].calls
+    assert [fn for fn, _ in calls] == ["flash_fwd_sm90", "flash_dq_sm90",
+                                       "flash_dq_sm90"]
+    for fn, args in calls:
+        n = 5 if fn == "flash_fwd_sm90" else 7
+        mask = args[n + 12:n + 20]
+        assert mask[0] and tuple(mask[1:5]) == (8, 0, 0, 1)
+    fwd_mask = calls[0][1][5 + 12:5 + 20]
+    assert fwd_mask[5] == words.data_ptr() and fwd_mask[7] == 1
+    assert calls[1][1][7 + 20] == db.data_ptr()
+    assert calls[2][1][7 + 20] is None and calls[2][1][7 + 17] is None
+    assert db.dtype == torch.float32 and tuple(db.shape) == (1, 4, 8, 8)
+    assert not db.any()

@@ -57,6 +57,18 @@ def test_names_and_wd_mask_match(pair):
     assert ttrainer._wd_mask(names) == jtrainer._wd_mask(names)
 
 
+def test_positions_past_the_table_clamp_as_in_the_reference(pair):
+    """At S = max_position_embeddings + 8 both GPTs read positions past
+    the wpe table from its last row (a clipping lookup)."""
+    jm, tm, _, _ = pair
+    s = gpt2_tiny().max_position_embeddings + 8
+    ids = np.random.RandomState(3).randint(0, 512, (1, s))
+    ref = jm(paddle.to_tensor(ids.astype(np.int64))).numpy()
+    got = tm(torch.from_numpy(ids)).detach().numpy()
+    assert got.shape == ref.shape == (1, s, 512)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+
 def test_loss_and_grads_match_value_and_grad(pair):
     jm, tm, x, y = pair
     opt = paddle.optimizer.AdamW(learning_rate=LR, weight_decay=0.01,

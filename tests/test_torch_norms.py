@@ -93,6 +93,33 @@ def test_rms_norm_layer_matches_jax_layer():
     np.testing.assert_allclose(got, ref, **TOL)
 
 
+def test_rms_norm_is_differentiable_on_the_card_branch(monkeypatch):
+    """The card branch (dispatch always takes the launch, which fills
+    fresh tensors with no autograd node, as the kernel does) keeps the
+    graph: x.grad and w.grad exist and match jax.grad of
+    rms_norm_pallas in interpret mode."""
+    import jax
+
+    def launch(x, w, eps):
+        with torch.no_grad():
+            y, inv = norms.rms_norm_plain(x, w, eps)
+        return y.clone(), inv.clone()
+    monkeypatch.setattr(_build, "dispatch",
+                        lambda plain, launch_, *a: launch_(*a))
+    monkeypatch.setattr(norms, "_launch", launch)
+    x, w, g = _mk((2, 7, 256), 9), _mk((256,), 10) + 1.0, _mk((2, 7, 256),
+                                                                11)
+    tx, tw = (torch.from_numpy(a).requires_grad_() for a in (x, w))
+    (TF.rms_norm(tx, tw, EPS) * torch.from_numpy(g)).sum().backward()
+    ref = jax.grad(lambda a, b: (rms_norm_pallas(a, b, EPS, True)
+                                 * jnp.asarray(g)).sum(), (0, 1))(
+        jnp.asarray(x), jnp.asarray(w))
+    assert tx.grad is not None and tw.grad is not None
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(ref[0]), **TOL)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(ref[1]),
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_cpu_call_never_reaches_the_kernel(monkeypatch):
     """A CPU tensor takes the plain version: no build, no launch, no
     count."""
