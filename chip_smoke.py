@@ -10,7 +10,8 @@ Phases, each fatal on failure:
    and cuDNN, so fp32 means fp32.
 2. build: every kernel under ``paddle_tpu_torch/ops/kernels/csrc`` with
    nvcc for sm_90a (one nvcc per source, in parallel), timed; ptxas's
-   registers, spills and warnings for each tensor-core flash kernel.
+   registers, spills and warnings for each tensor-core flash kernel, and
+   its SASS's HGMMAs, wgmma waits and global loads.
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (RMSNorm forward, and its backward from the
    kernel's statistic; LayerNorm at GPT-2's and BERT-large's widths;
@@ -33,7 +34,14 @@ Phases, each fatal on failure:
    result than 1.25x the plain version's own distance); dbias is held
    tighter than a bf16-rounded dbias could pass. Each flash case must
    launch exactly the kernels of ``flash_route``'s choice, a bias call
-   their bias instantiations, each counted on its own counter.
+   their bias instantiations, each counted on its own counter; a bias of
+   the "keys" class (``flash_bias_class``: it does not vary along
+   queries) takes the wgmma dq and dkv's "keys" instantiations, whose dq,
+   dk and dv must equal the "plane" class's on the same bias,
+   materialised along queries, bit for bit (BERT's mask, a broadcast
+   bias, key masks at a ragged edge, causal or with dropout, and one
+   query). The wgmma dq and dkv are also timed bias-free and with the
+   "plane" class at BERT's shape.
 4. serve: two cells behind the continuous-batching ``DecodeServer``, each
    with random weights from ``--seed`` at full width and depth, fp32: 8
    mixed-length prompts from client threads, 32 greedy tokens each.
@@ -79,10 +87,10 @@ Phases, each fatal on failure:
       a split at 1/4-3/4 of the length, 15 % of valid positions masked to
       id 103 and labelled), 20 steps on one batch: the loss must fall by
       at least 0.5 and every step must launch exactly 24 flash
-      forwards, 24 dq and 24 dkv, all the wgmma kernels' bias
-      instantiations (none bias-free, none on the FMA route), 50
-      LayerNorm, two CE forward and two CE backward kernels (MLM and
-      NSP), and no dbias is computed. Reports ms/step, tokens/s (all and valid positions), peak
+      forwards (the wgmma bias instantiation), 24 dq and 24 dkv (the
+      wgmma "keys" instantiations; none bias-free, none "plane", none on
+      the FMA route), 50 LayerNorm, two CE forward and two CE backward
+      kernels (MLM and NSP), and no dbias is computed. Reports ms/step, tokens/s (all and valid positions), peak
       memory and MFU (6 x matmul params + 12 L S H per token over 989
       TFLOP/s). With ``--profile``, one step goes under
       ``torch.profiler``.
@@ -530,6 +538,15 @@ FLASH_CASES = [
      0.0, {"seg": ((5, 300, 1, 700, 18), (5, 300, 1, 700, 18))}),
     ("varlen-ragged-qk", 1, 6, 8, 2, 2, 64, torch.bfloat16, True, 0.0,
      {"seg": ((2, 4), (4, 4))}),
+    # the "keys" bias class of the wgmma dq and dkv at the ragged key edge
+    # (causal; and not, with dropout) and with one query, whose [B, 1, 1,
+    # Sk] bias has a query stride but Sq = 1
+    ("keymask-333-causal", 2, 333, 333, 4, 2, 64, torch.bfloat16, True, 0.0,
+     {"bias": "keymask"}),
+    ("keymask-333-dropout", 2, 333, 333, 4, 2, 64, torch.bfloat16, False,
+     0.1, {"bias": "keymask"}),
+    ("keymask-one-query", 2, 1, 300, 4, 2, 64, torch.bfloat16, True, 0.0,
+     {"bias": "keymask-contiguous"}),
 ]
 INF_ROWS = (0, 7, 100)                  # the rows "inf-rows" hides
 # entry-wise (check_close), 2-5x the most the kernels needed on the card
@@ -561,14 +578,17 @@ def _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype):
 
 def _flash_bias(gen, kind, b, sq, sk, hq):
     """An fp32 additive bias: "keymask", BERT's padding mask (valid
-    lengths uniform over 128-512, 0 / -1e9 on the keys); "full" and
-    "inf-rows", [B, Hq, Sq, Sk] at 0.5 N(0, 1), the latter with the rows
-    INF_ROWS at -inf; "bcast", [1, Hq, 1, Sk] at 0.5 N(0, 1)."""
+    lengths uniform over 128-Sk, 0 / -1e9 on the keys), a [B, 1, 1, Sk]
+    view with stride 0 on the query dim ("keymask-contiguous": the same,
+    contiguous); "full" and "inf-rows", [B, Hq, Sq, Sk] at 0.5 N(0, 1),
+    the latter with the rows INF_ROWS at -inf; "bcast", [1, Hq, 1, Sk] at
+    0.5 N(0, 1)."""
     dev = torch.device("cuda")
-    if kind == "keymask":
+    if kind.startswith("keymask"):
         lens = torch.randint(128, sk + 1, (b,), device=dev, generator=gen)
         keys = torch.arange(sk, device=dev)[None, :]
-        return torch.where(keys < lens[:, None], 0.0, -1e9)[:, None, None]
+        mask = torch.where(keys < lens[:, None], 0.0, -1e9)[:, None, None]
+        return mask.contiguous() if kind == "keymask-contiguous" else mask
     shape = (1, hq, 1, sk) if kind == "bcast" else (b, hq, sq, sk)
     bias = 0.5 * torch.randn(shape, device=dev, generator=gen)
     if kind == "inf-rows":
@@ -661,6 +681,13 @@ def _flash_case(fa, gen, case):
             if not all(torch.isfinite(t).all() for t in (dq, dk, dv, db)):
                 raise AssertionError(f"{name}: a gradient is not finite")
 
+    # the wgmma dq and dkv take a "keys" bias (one that does not vary
+    # along queries) by its own instantiations
+    keys = False
+    if route == "wgmma" and bias is not None:
+        b4 = fa._bias4(bias, b, hq, sq, sk)
+        keys = fa.flash_bias_class(b4.shape, b4.stride(), seg is not None,
+                                   dbias) == "keys"
     before = _counts()
     out, lse = fa.flash_fwd(q, k, v, causal, scale, rate, seed, bias, seg)
     dq = fa.flash_dq(q, k, v, do, lsep, delta, *args, dbias=dbias)
@@ -670,9 +697,37 @@ def _flash_case(fa, gen, case):
              if c != before[n]}
     sfx = _sfx(route) + ("_bias" if bias is not None else "")
     expect = {f"flash_{kind}{sfx}": 1 for kind in ("fwd", "dq", "dkv")}
+    if keys:
+        expect = {"flash_fwd_wgmma_bias": 1, "flash_dq_wgmma_keybias": 1,
+                  "flash_dkv_wgmma_keybias": 1}
     if moved != expect:
         raise AssertionError(f"{name}: launches {moved}, expected {expect}")
     hold(_sfx(route), out, lse, dq, dk, dv, db)
+    if keys:
+        # the "plane" class on the same bias, its query dim materialised:
+        # the same additions in the same order, so the same bits
+        shape = list(fa._bias_shape4(bias))
+        shape[2] = sq
+        plane = bias.reshape(fa._bias_shape4(bias)).expand(shape).contiguous()
+        pargs = (causal, scale, rate, seed, plane, seg)
+        before = _counts()
+        # named: with one query (Sq = 1) every bias is of the keys class
+        got = (fa._dq_launch(q, k, v, do, lsep, delta, *pargs,
+                             bias_class="plane"),
+               *fa._dkv_launch(q, k, v, do, lsep, delta, *pargs,
+                               bias_class="plane"))
+        moved = {n: c - before[n] for n, c in _counts().items()
+                 if c != before[n]}
+        if moved != {"flash_dq_wgmma_bias": 1, "flash_dkv_wgmma_bias": 1}:
+            raise AssertionError(f"{name}: the plane bias {shape} launched "
+                                 f"{moved}")
+        for gname, want, g in zip(("dq", "dk", "dv"), (dq, dk, dv), got):
+            if not torch.equal(g, want):
+                raise AssertionError(
+                    f"{name}: {gname} of the keys class differs from the "
+                    f"plane class's at {int((g != want).sum())} entries")
+        log(f"    dq, dk, dv of the keys class equal the plane class's "
+            f"(bias {shape}) bit for bit")
     if route == "wgmma":
         out, lse = fa._fwd_launch(q, k, v, *args, route="fma")
         dq = fa._dq_launch(q, k, v, do, lsep, delta, *args, dbias,
@@ -693,20 +748,25 @@ def _flash_case(fa, gen, case):
     return e, u
 
 
-def _flash_timings(fa, gen, case, kinds):
+def _flash_timings(fa, gen, case, kinds, bias_as=None):
     """Device times of the named flash kernels (kind + route suffix) at the
     case's shape beside their plain versions, their bound and sdpa:
     forward, and backward alone (the forward-plus-backward graph less the
     forward graph), which computes dq, dk and dv together. A case with a
     bias (not causal) gives sdpa the same float bias as its attn_mask, and
-    one with dropout its rate: every call runs at the case's rate."""
+    one with dropout its rate: every call runs at the case's rate.
+    ``bias_as``: "none" drops the case's bias (the bias-free kernels at its
+    shape), "plane" materialises it as [B, 1, Sq, Sk] (the "plane" bias
+    class)."""
     name, b, sq, sk, hq, hk, d, dtype, causal, rate = case[:10]
     extras = case[10] if len(case) > 10 else {}
     q, k, v, do = _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype)
     scale = 1.0 / math.sqrt(d)
     seed = torch.tensor([987654321], dtype=torch.int32, device="cuda")
     bias = (_flash_bias(gen, extras["bias"], b, sq, sk, hq)
-            if "bias" in extras else None)
+            if "bias" in extras and bias_as != "none" else None)
+    if bias_as == "plane":
+        bias = bias.expand(b, 1, sq, sk).contiguous()
     drop = (rate, seed, bias)
     _, lse = fa.flash_fwd_plain(q, k, v, causal, scale, bias=bias)
     out, _ = fa.flash_fwd(q, k, v, causal, scale, *drop)
@@ -782,15 +842,26 @@ def _flash_timings(fa, gen, case, kinds):
 
 FLASH_KINDS = ("fwd", "fwd_wgmma", "dq", "dq_wgmma", "dkv", "dkv_wgmma")
 WGMMA_KINDS = ("fwd_wgmma", "dq_wgmma", "dkv_wgmma")
+WGMMA_BWD_KINDS = ("dq_wgmma", "dkv_wgmma")
 FMA_KINDS = ("fwd", "dq", "dkv")
 # the timed shapes: GPT-2's and Llama-2 7B's training attention on both
 # routes; BERT-large's at its dropout 0.1 (the bias instantiations its
-# train cell launches) and without dropout on the wgmma kernels; the bias
-# instantiations of the FMA kernels at the BERT oracle's fp32 shape
+# train cell launches) and without dropout on the wgmma kernels, each
+# beside the bias-free kernels at the same shape and dropout (sdpa then
+# without the mask), and the "plane" bias class on the same mask
+# materialised as [B, 1, Sq, Sk]; the bias instantiations of the FMA
+# kernels at the BERT oracle's fp32 shape. (key, case, kinds[, bias_as])
 FLASH_TIMED = (("gpt2", "gpt2-train", FLASH_KINDS),
                ("llama7b", "llama7b", FLASH_KINDS),
                ("bert", "bert-keymask-dropout", WGMMA_KINDS),
                ("bert_no_dropout", "bert-large-keymask", WGMMA_KINDS),
+               ("bert_nobias", "bert-keymask-dropout", WGMMA_KINDS, "none"),
+               ("bert_nobias_no_dropout", "bert-large-keymask", WGMMA_KINDS,
+                "none"),
+               ("bert_plane", "bert-keymask-dropout", WGMMA_BWD_KINDS,
+                "plane"),
+               ("bert_plane_no_dropout", "bert-large-keymask",
+                WGMMA_BWD_KINDS, "plane"),
                ("bert_oracle_fp32", "bert-oracle-keymask-fp32", FMA_KINDS))
 
 
@@ -831,11 +902,12 @@ def phase_flash(fa, gen):
             f" dropped, rate {rate})")
 
     timed = {}
-    for key, name, kinds in FLASH_TIMED:
+    for key, name, kinds, *bias_as in FLASH_TIMED:
         case = next(c for c in FLASH_CASES if c[0] == name)
-        timed[key] = _flash_timings(fa, gen, case, kinds)
-        for kind in kinds:
-            timed[key][kind]["max_abs_err"] = errs[name][kind]
+        timed[key] = _flash_timings(fa, gen, case, kinds, *bias_as)
+        if not bias_as:
+            for kind in kinds:
+                timed[key][kind]["max_abs_err"] = errs[name][kind]
         torch.cuda.empty_cache()
     return timed, errs, used
 
@@ -1243,6 +1315,8 @@ def _wrappers():
         out.update({f"flash_{kind}": w, f"flash_{kind}_wgmma": w.wgmma,
                     f"flash_{kind}_bias": w.bias,
                     f"flash_{kind}_wgmma_bias": w.wgmma_bias})
+        if kind != "fwd":
+            out[f"flash_{kind}_wgmma_keybias"] = w.wgmma_keybias
     return out
 
 
@@ -1260,15 +1334,18 @@ def _expected_counts(layers: int, steps: int, route: str,
                      bias: bool = False) -> dict:
     """Per train step: one flash forward, one dq and one dkv per layer on
     the kernels of ``route`` ("wgmma" for bf16, "fma" for fp32), their
-    bias instantiations with ``bias`` (and none of the others);
-    ``norms`` LayerNorms (GPT-2: two per layer and the final one); ``ces``
-    CE forwards and as many CE backwards (GPT-2: one)."""
+    bias instantiations with ``bias`` (a padding mask: on the wgmma route
+    dq and dkv take the "keys" class), and none of the others; ``norms``
+    LayerNorms (GPT-2: two per layer and the final one); ``ces`` CE
+    forwards and as many CE backwards (GPT-2: one)."""
     norms = 2 * layers + 1 if norms is None else norms
     sfx = _sfx(route) + ("_bias" if bias else "")
+    bwd = _sfx(route) + ("_keybias" if route == "wgmma" else "_bias") \
+        if bias else sfx
     out = dict.fromkeys(_wrappers(), 0)
     out.update({f"flash_fwd{sfx}": layers * steps,
-                f"flash_dq{sfx}": layers * steps,
-                f"flash_dkv{sfx}": layers * steps,
+                f"flash_dq{bwd}": layers * steps,
+                f"flash_dkv{bwd}": layers * steps,
                 "layer_norm": norms * steps,
                 "softmax_xent_fwd": ces * steps,
                 "softmax_xent_bwd": ces * steps})
@@ -1724,15 +1801,17 @@ def ptxas_report(text: str, sass: str = "") -> dict:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 cur["registers"] = int(m.group(1))
-    code = {}
+    code, loads = {}, {}
     for part in sass.split("Function : ")[1:]:
         name, body = part.split(None, 1)
         code[_short_kernel(name)] = (body.count("HGMMA"),
                              body.count("WARPGROUP.DEPBAR"))
+        # global (LDG) and generic (LD) loads in the code, not per run
+        loads[_short_kernel(name)] = len(re.findall(r"\bLDG?\.E", body))
     for row in kernels:
         if row["kernel"] in code:
             row["hgmma"], row["wgmma_waits"] = code[row["kernel"]]
-    return {"kernels": kernels, "warnings": warnings}
+    return {"kernels": kernels, "warnings": warnings, "global_loads": loads}
 
 
 def sass_of(lib) -> str:
@@ -1795,7 +1874,8 @@ def main(argv=None) -> int:
         log(f"  ptxas {row['kernel']}: {row.get('registers')} registers, "
             f"spill stores {row.get('spill_stores')} B, loads "
             f"{row.get('spill_loads')} B; SASS {row.get('hgmma')} HGMMA, "
-            f"{row.get('wgmma_waits')} wgmma waits")
+            f"{row.get('wgmma_waits')} wgmma waits, "
+            f"{ptxas['global_loads'].get(row['kernel'])} global loads")
     for line in ptxas["warnings"]:
         log(f"  ptxas {line}")
 
@@ -1817,12 +1897,18 @@ def main(argv=None) -> int:
         timed, report["flash_errors"], report["flash_tolerance_used"] = \
             phase_flash(fa, gen)
         # the table's rows: the bias-free kernels at GPT-2's shape, their
-        # bias instantiations at BERT's (wgmma, with its dropout) and the
-        # BERT oracle's (FMA)
+        # bias instantiations at BERT's (wgmma, with its dropout: the
+        # forward's, dq's and dkv's "keys" class, and the "plane" class on
+        # the mask materialised, which gives the same bits) and the BERT
+        # oracle's (FMA)
         for kind in FLASH_KINDS:
             rows["flash_" + kind] = timed["gpt2"].pop(kind)
-        for kind in WGMMA_KINDS:
-            rows[f"flash_{kind}_bias"] = timed["bert"].pop(kind)
+        rows["flash_fwd_wgmma_bias"] = timed["bert"].pop("fwd_wgmma")
+        for kind in WGMMA_BWD_KINDS:
+            rows[f"flash_{kind}_keybias"] = timed["bert"].pop(kind)
+            rows[f"flash_{kind}_bias"] = dict(
+                timed["bert_plane"].pop(kind),
+                max_abs_err=rows[f"flash_{kind}_keybias"]["max_abs_err"])
         for kind in FMA_KINDS:
             rows[f"flash_{kind}_bias"] = timed["bert_oracle_fp32"].pop(kind)
         report["flash_timings"] = timed
@@ -1892,9 +1978,13 @@ def main(argv=None) -> int:
                             "paddle_tpu/ops/pallas/flash_attention.py:455"),
     }
     # the bias instantiations (each counted on its own counter): the BERT
-    # paths, where every attention carries the mask
+    # paths, where every attention carries the mask; the wgmma dq and dkv
+    # take it as a "keys" bias, and their "plane" instantiations run for
+    # every other bias (no main path has one)
     for kind in FLASH_KINDS:
         sources[f"flash_{kind}_bias"] = sources[f"flash_{kind}"]
+    for kind in WGMMA_BWD_KINDS:
+        sources[f"flash_{kind}_keybias"] = sources[f"flash_{kind}"]
     report["launches_by_path"] = by_path
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -18,22 +18,42 @@
 // The additive bias, the segment words and the dq pass's dbias output
 // (flash_common.cuh, Mask) are template arguments of every kernel (BIAS,
 // SEG; dq's BIAS = 2 also emits dbias), so the instantiations without them
-// keep their registers and wgmma waits. Simple, not fast: each consumer
-// thread reads the bias and the segment words of its accumulator elements
-// with plain global loads at their (row, col), guarded to row < Sq and key
-// < Sk, on every tile (TMA zero-fills only the tiles); with segments every
-// tile is masked element by element. The bias joins in natural units,
+// keep their registers and wgmma waits. The bias joins in natural units,
 // (s scale + b) log2(e) in the forward's exp2 domain, and as
 // exp(fl(fl(s scale) + b) - lse) in the backward, the plain version's order.
+// The backward knows two bias classes, chosen on the host
+// (`flash_bias_class`):
+// - "keys", a bias that does not vary along queries (query stride 0 or
+//   Sq = 1: every padding mask, [B,1,1,Sk] as BERT's): dkv holds the bias
+//   of its thread's two keys in two registers, read once per q head (once
+//   per CTA when the heads share it); in dq a producer warp copies each
+//   K/V stage's 64 key biases (0 past Sk) into the stage, arriving on its
+//   full barrier, ordered by thread (keys_slot), and a consumer loads its
+//   16 per tile as 4 x 16 bytes while its S and dP products run. No
+//   per-element global load, no guard in the loop. These instantiations
+//   read shared memory by ld.shared (the stage's pointers, built from an
+//   aligned integer, would take generic loads: a tenth of dq's time) and
+//   their two consumer warpgroups take turns issuing S and dP (named
+//   barriers 1 and 2, FlashAttention-3's ping-pong), so one's
+//   elementwise pass runs beside the other's products.
+// - "plane", every other bias, and any bias with segments or dbias. Simple,
+//   not fast: each consumer thread reads the bias and the segment words of
+//   its accumulator elements with plain global loads at their (row, col),
+//   guarded to row < Sq and key < Sk, on every tile (TMA zero-fills only
+//   the tiles); with segments every tile is masked element by element. The
+//   forward reads every bias this way.
+// Both classes add the same value in the same order, so they give the
+// same bits.
 //
 // What bounds it: at GPT-2's training shape (B*H = 96, S = 1024, D = 64,
 // causal) the forward does 12.9 GFLOP on 50 MB (13 us at 989 TFLOP/s,
 // 15 us at 3.35 TB/s); dq and dkv do 1.5x and twice the flops on about
 // the same bytes, so they are bound by operations (20 and 26 us).
 //
-// Design (FlashAttention-3's split, without its ping-pong scheduling or
-// intra-warpgroup overlap): 384 threads = three warpgroups. Warpgroup 0 is
-// the producer: it gives up registers (setmaxnreg 24) and one thread keeps
+// Design (FlashAttention-3's split, without its intra-warpgroup overlap;
+// its ping-pong scheduling only in the "keys" instantiations): 384
+// threads = three warpgroups. Warpgroup 0 is the producer: it gives up
+// registers (setmaxnreg 24) and one thread keeps
 // TMA loads in flight through a ring of stages (two; four in dq), each
 // with a "full" barrier (TMA bytes) and an "empty" barrier (256 consumer
 // arrivals).
@@ -107,6 +127,20 @@ __device__ __forceinline__ int seg_word(const int* seg, int b, int n, int i,
 __device__ __forceinline__ const float* bias_row(const Mask& mk, const Dims& dm,
                                                  int b, int h, int row) {
   return row < dm.Sq ? mk.bias + b * mk.sb + h * mk.sh + row * mk.sq : nullptr;
+}
+
+// The "keys" bias class: the bias of (batch b, q head h, key), the same
+// for every query; 0 for a key past Sk.
+__device__ __forceinline__ float key_bias(const Mask& mk, const Dims& dm, int b,
+                                          int h, int key) {
+  return key < dm.Sk ? mk.bias[b * mk.sb + h * mk.sh + key * mk.sk] : 0.f;
+}
+
+// dq's stage of key biases: key j of the tile (column frag_col(l, i, e) =
+// 8 i + 2 (l & 3) + e) at the slot that puts each thread's 16 biases in a
+// row, by l & 3, then i, then e: 4 x 16 bytes per thread and tile.
+__device__ __forceinline__ int keys_slot(int j) {
+  return 16 * ((j & 7) >> 1) + 2 * (j >> 3) + (j & 1);
 }
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
@@ -414,7 +448,8 @@ struct DkvTile {
                               STAGES * (2 * Q_BYTES + STAT_BYTES) + 128;
 };
 
-template <int DP, bool DROP, bool BIAS, bool SEG>
+// BIAS: 0 none, 1 bias ("plane" class), 2 bias of the "keys" class
+template <int DP, bool DROP, int BIAS, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1)
 dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
@@ -520,14 +555,29 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       for (int r = 0; r < 2; ++r)
         kw[r] = seg_word(mk.kseg, b, dm.Sk, key_base + frag_row(w, l, 2 * r), kNoKey);
     }
-    // the bias column of each key (-1 past Sk: its bias reads as 0)
+    // "plane": the bias column of each key (-1 past Sk: its bias reads as
+    // 0). "keys": the bias of the thread's two keys under the tile's q
+    // head, in registers, read again only where the head changes and the
+    // heads' biases differ (sh != 0)
     [[maybe_unused]] long long bkey[2] = {-1, -1};
-    if constexpr (BIAS) {
+    [[maybe_unused]] float bk[2] = {0.f, 0.f};
+    if constexpr (BIAS == 1) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int key = key_base + frag_row(w, l, 2 * r);
         bkey[r] = key < dm.Sk ? key * mk.sk : -1;
       }
+    } else if constexpr (BIAS == 2) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        bk[r] = key_bias(mk, dm, b, hk * rep, key_base + frag_row(w, l, 2 * r));
+    }
+    constexpr bool PP = BIAS == 2;
+    if constexpr (PP) {
+      // ping-pong: a warpgroup issues S and dP after a sync on barrier
+      // 1 + cw, which the other's arrival after its own S and dP
+      // completes; warpgroup 2's first arrival lets warpgroup 1 start
+      if (cw == 1) named_arrive(1, 256);
     }
     float dka[DP / 2], dva[DP / 2];
 #pragma unroll
@@ -539,12 +589,23 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       const uint32_t par = (it / ST) & 1;
       const int bh = b * dm.Hq + hk * rep + it / per_head;
       const int q0 = (qi0 + it % per_head) * BQ;
+      if constexpr (BIAS == 2) {
+        if (mk.sh != 0 && it > 0 && it % per_head == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            bk[r] = key_bias(mk, dm, b, bh - b * dm.Hq, key_base + frag_row(w, l, 2 * r));
+        }
+      }
       // every key of this warpgroup past the tile's last row: nothing to add
       // (the wait keeps this arrival in round `it`: arriving early could
       // complete the previous round's release while the other warpgroup
       // still reads that stage)
       if (causal && key_base > q0 + BQ - 1 + offset) {
         mbar_wait(full + s, par);
+        if constexpr (PP) {
+          named_sync(1 + cw, 256);
+          named_arrive(2 - cw, 256);
+        }
         mbar_arrive(empty + s);
         continue;
       }
@@ -554,6 +615,7 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       // S^T = K Q^T and dP^T = V dO^T (fp32, 64 keys x BQ queries)
       float st[BQ / 2], dpt[BQ / 2];
       mbar_wait(full + s, par);
+      if constexpr (PP) named_sync(1 + cw, 256);   // this warpgroup's turn
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
@@ -568,6 +630,7 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                         desc_sw128(do_addr + (kk >> 2) * T::Q_CHUNK + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
+      if constexpr (PP) named_arrive(2 - cw, 256);   // the other's turn
       wgmma_wait<0>();
       fence_regs(st);
       fence_regs(dpt);
@@ -579,13 +642,20 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       const uint32_t seed_bh = DROP ? mix_seed(seed, bh) : 0u;
       // this tile's q head's bias plane
       [[maybe_unused]] const float* bplane =
-          BIAS ? mk.bias + b * mk.sb + (bh - b * dm.Hq) * mk.sh : nullptr;
+          BIAS == 1 ? mk.bias + b * mk.sb + (bh - b * dm.Hq) * mk.sh : nullptr;
       uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
       for (int i = 0; i < BQ / 8; ++i) {
         const int cl = frag_col(l, i, 0);
-        const float2 lsv = *reinterpret_cast<const float2*>(ls + cl);
-        const float2 dlv = *reinterpret_cast<const float2*>(dl + cl);
+        float2 lsv, dlv;
+        if constexpr (BIAS == 2) {
+          // "keys": by ld.shared (the pointers' loads are generic)
+          lsv = lds_f2(smem_u32(ls + cl));
+          dlv = lds_f2(smem_u32(dl + cl));
+        } else {
+          lsv = *reinterpret_cast<const float2*>(ls + cl);
+          dlv = *reinterpret_cast<const float2*>(dl + cl);
+        }
         float pv[4], ds[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -596,10 +666,12 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           // exp2 with log2(e) folded in gives, flips the bf16 rounding of
           // some large p. The bias of (query qr, key) is read transposed.
           float x = __fmul_rn(st[4 * i + j], scale);
-          if constexpr (BIAS)
+          if constexpr (BIAS == 1)
             x = __fadd_rn(x, qr < dm.Sq && bkey[j >> 1] >= 0
                                  ? bplane[qr * mk.sq + bkey[j >> 1]]
                                  : 0.f);
+          else if constexpr (BIAS == 2)
+            x = __fadd_rn(x, bk[j >> 1]);
           float p = expf(x - ((j & 1) ? lsv.y : lsv.x));
           if constexpr (SEG) {
             if ((cut && key > qr + offset) ||
@@ -643,6 +715,9 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(empty + s);
     }
 
+    if constexpr (PP) {
+      if (cw == 0) named_sync(1, 256);   // warpgroup 2's last arrival
+    }
     const size_t stride = static_cast<size_t>(dm.Hk) * dm.D;
     const size_t koff = (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
     store_rows<DP>(dk + koff, stride, dka, key_base, dm.Sk, dm.D, scale, scale, w, l);
@@ -665,9 +740,11 @@ struct DqTile {
   static constexpr int Q_BYTES = CH * Q_CHUNK;      // Q or dO, loaded once
   static constexpr int KV_BYTES = CH * KV_CHUNK;    // K or V, one stage
   static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES + 128;
+  static constexpr int KEY_BIAS_BYTES = STAGES * BK * 4;   // "keys" class only
 };
 
-// BIAS: 0 none, 1 bias, 2 bias and dbias
+// BIAS: 0 none, 1 bias ("plane" class), 2 bias and dbias ("plane"), 3 bias
+// of the "keys" class
 template <int DP, bool DROP, int BIAS, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -687,6 +764,9 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * T::KV_BYTES);
   uint64_t* kv_full = q_full + 1;                    // [ST]
   uint64_t* kv_empty = kv_full + ST;                 // [ST]
+  // "keys": each stage's 64 key biases, past the barriers' 128 bytes
+  [[maybe_unused]] float* kbias =
+      reinterpret_cast<float*>(Vs + ST * T::KV_BYTES + 128);   // [ST][BK]
 
   const int nq = (dm.Sq + BQ - 1) / BQ;
   const int qi = nq - 1 - static_cast<int>(blockIdx.x);  // long rows first
@@ -701,10 +781,12 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     nk = last < 0 ? 0 : min(nk, last / BK + 1);
   }
 
+  constexpr bool PP = BIAS == 3;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < ST; ++s) {
-      mbar_init(kv_full + s, 1);
+      // "keys": the TMA thread + the key-bias warp
+      mbar_init(kv_full + s, BIAS == 3 ? 1 + 32 : 1);
       mbar_init(kv_empty + s, 2 * 128);
     }
     fence_barrier_init();
@@ -713,9 +795,22 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    // ---- producer ----
+    // ---- producer: thread 0 drives TMA; under "keys" warp 1 copies each
+    // stage's key biases (0 past Sk) into the stage ----
     reg_dealloc<kProducerRegs>();
-    if (threadIdx.x == 0) {
+    if (BIAS == 3 && threadIdx.x / 32 == 1) {
+      const int lane = threadIdx.x & 31;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % ST;
+        mbar_wait(kv_empty + s, ((kt / ST) & 1) ^ 1);
+#pragma unroll
+        for (int rr = 0; rr < BK / 32; ++rr) {
+          const int j = lane + 32 * rr;
+          kbias[s * BK + keys_slot(j)] = key_bias(mk, dm, b, h, kt * BK + j);
+        }
+        mbar_arrive(kv_full + s);
+      }
+    } else if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, 2 * T::Q_BYTES);
       for (int c = 0; c < T::CH; ++c) {
         tma_load_4d(Qs + c * T::Q_CHUNK, &tq, q_full, 64 * c, h, q0, b);
@@ -752,7 +847,7 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     [[maybe_unused]] const float* brow[2] = {nullptr, nullptr};
     [[maybe_unused]] float* drow[2] = {nullptr, nullptr};
     [[maybe_unused]] const int bsk = static_cast<int>(mk.sk);     // 0 or 1
-    if constexpr (BIAS > 0) {
+    if constexpr (BIAS == 1 || BIAS == 2) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row_base + frag_row(w, l, 2 * r);
@@ -782,6 +877,12 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const uint32_t q_addr = smem_u32(Qs) + 64 * cw * 128;
     const uint32_t do_addr = smem_u32(dOs) + 64 * cw * 128;
 
+    if constexpr (PP) {
+      // ping-pong: a warpgroup issues S and dP after a sync on barrier
+      // 1 + cw, which the other's arrival after its own S and dP
+      // completes; warpgroup 2's first arrival lets warpgroup 1 start
+      if (cw == 1) named_arrive(1, 256);
+    }
     mbar_wait(q_full, 0);
     for (int kt = 0; kt < nk; ++kt) {
       const int s = kt % ST;
@@ -791,6 +892,10 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       // (waiting for the tile keeps this arrival in round `kt`, as in dkv)
       if (row_base >= dm.Sq || (causal && k0 > row_base + 63 + offset)) {
         mbar_wait(kv_full + s, par);
+        if constexpr (PP) {
+          named_sync(1 + cw, 256);
+          named_arrive(2 - cw, 256);
+        }
         mbar_arrive(kv_empty + s);
         continue;
       }
@@ -802,6 +907,7 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       // made ptxas wait out every wgmma (a fifth of the kernel's time)
       float sc[BK / 2], dpa[BK / 2];
       mbar_wait(kv_full + s, par);
+      if constexpr (PP) named_sync(1 + cw, 256);   // this warpgroup's turn
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk) {
@@ -816,6 +922,15 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                         desc_sw128(v_addr + (kk >> 2) * T::KV_CHUNK + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
+      if constexpr (PP) named_arrive(2 - cw, 256);   // the other's turn
+      // "keys": this thread's 16 key biases of the tile, 4 x 16 bytes by
+      // ld.shared, loaded while the products run
+      [[maybe_unused]] float4 kb4[BK / 16];
+      if constexpr (BIAS == 3) {
+        const uint32_t kb_addr = smem_u32(kbias + s * BK) + 64 * (l & 3);
+#pragma unroll
+        for (int m = 0; m < BK / 16; ++m) kb4[m] = lds_f4(kb_addr + 16 * m);
+      }
       wgmma_wait<0>();
       fence_regs(sc);
       fence_regs(dpa);
@@ -830,6 +945,11 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int i = 0; i < BK / 8; ++i) {
         float ds[4];
+        // "keys": the two key biases of this column pair
+        [[maybe_unused]] float2 kb = make_float2(0.f, 0.f);
+        if constexpr (BIAS == 3)
+          kb = (i & 1) ? make_float2(kb4[i >> 1].z, kb4[i >> 1].w)
+                       : make_float2(kb4[i >> 1].x, kb4[i >> 1].y);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int row = row_base + frag_row(w, l, j);
@@ -837,8 +957,10 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           // exp(s scale - lse) in the plain version's order of rounding, as
           // in dkv (exp2 flips the bf16 rounding of some large p)
           float x = __fmul_rn(sc[4 * i + j], scale);
-          if constexpr (BIAS > 0)
+          if constexpr (BIAS == 1 || BIAS == 2)
             x = __fadd_rn(x, brow[j >> 1] && col < dm.Sk ? brow[j >> 1][col * bsk] : 0.f);
+          else if constexpr (BIAS == 3)
+            x = __fadd_rn(x, (j & 1) ? kb.y : kb.x);
           float p = expf(x - ls[j >> 1]);
           if constexpr (SEG) {
             if ((cut && (col >= dm.Sk || (causal && col > row + offset))) ||
@@ -873,6 +995,9 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(kv_empty + s);
     }
 
+    if constexpr (PP) {
+      if (cw == 0) named_sync(1, 256);   // warpgroup 2's last arrival
+    }
     const size_t stride = static_cast<size_t>(dm.Hq) * dm.D;
     bf16* db = dq + (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
     store_rows<DP>(db, stride, dqa, row_base, dm.Sq, dm.D, scale, scale, w, l);
@@ -912,7 +1037,7 @@ cudaError_t launch_fwd(const Args& a, cudaStream_t s) {
 }
 
 template <int DP>
-cudaError_t launch_dkv(const Args& a, cudaStream_t s) {
+cudaError_t launch_dkv(const Args& a, bool keys, cudaStream_t s) {
   using T = DkvTile<DP>;
   const Dims& d = a.dm;
   CUtensorMap tq, tk, tv, tdo;
@@ -922,14 +1047,17 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t s) {
       (err = make_map_bshd(&tk, a.k, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess ||
       (err = make_map_bshd(&tv, a.v, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess)
     return err;
-  // instantiation by (dropout, bias, segments)
-  static const decltype(&dkv_sm90_kernel<DP, false, false, false>) kerns[8] = {
-      dkv_sm90_kernel<DP, false, false, false>, dkv_sm90_kernel<DP, true, false, false>,
-      dkv_sm90_kernel<DP, false, true, false>, dkv_sm90_kernel<DP, true, true, false>,
-      dkv_sm90_kernel<DP, false, false, true>, dkv_sm90_kernel<DP, true, false, true>,
-      dkv_sm90_kernel<DP, false, true, true>, dkv_sm90_kernel<DP, true, true, true>};
-  static bool smem_set[8] = {};
-  const int var = (a.dr.on ? 1 : 0) | (a.mk.bias ? 2 : 0) | (a.mk.qseg ? 4 : 0);
+  // instantiation by (dropout, bias mode, segments); the "keys" class
+  // (mode 2) has no segments
+  static const decltype(&dkv_sm90_kernel<DP, false, 0, false>) kerns[10] = {
+      dkv_sm90_kernel<DP, false, 0, false>, dkv_sm90_kernel<DP, true, 0, false>,
+      dkv_sm90_kernel<DP, false, 1, false>, dkv_sm90_kernel<DP, true, 1, false>,
+      dkv_sm90_kernel<DP, false, 2, false>, dkv_sm90_kernel<DP, true, 2, false>,
+      dkv_sm90_kernel<DP, false, 0, true>, dkv_sm90_kernel<DP, true, 0, true>,
+      dkv_sm90_kernel<DP, false, 1, true>, dkv_sm90_kernel<DP, true, 1, true>};
+  static bool smem_set[10] = {};
+  const int mode = a.mk.bias ? (keys ? 2 : 1) : 0;
+  const int var = (a.dr.on ? 1 : 0) + 2 * mode + (a.mk.qseg ? 6 : 0);
   auto kern = kerns[var];
   if ((err = allow_smem(kern, T::SMEM, smem_set[var])) != cudaSuccess) return err;
   const int nk = (d.Sk + T::BK - 1) / T::BK;
@@ -940,7 +1068,7 @@ cudaError_t launch_dkv(const Args& a, cudaStream_t s) {
 }
 
 template <int DP>
-cudaError_t launch_dq(const Args& a, cudaStream_t s) {
+cudaError_t launch_dq(const Args& a, bool keys, cudaStream_t s) {
   using T = DqTile<DP>;
   const Dims& d = a.dm;
   CUtensorMap tq, tk, tv, tdo;
@@ -950,22 +1078,25 @@ cudaError_t launch_dq(const Args& a, cudaStream_t s) {
       (err = make_map_bshd(&tk, a.k, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess ||
       (err = make_map_bshd(&tv, a.v, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess)
     return err;
-  // instantiation by (dropout, bias mode, segments); dbias needs a bias
+  // instantiation by (dropout, bias mode, segments); dbias needs a bias;
+  // the "keys" class (mode 3) has no dbias and no segments
   if (a.mk.dbias && !a.mk.bias) return cudaErrorInvalidValue;
-  static const decltype(&dq_sm90_kernel<DP, false, 0, false>) kerns[12] = {
+  static const decltype(&dq_sm90_kernel<DP, false, 0, false>) kerns[14] = {
       dq_sm90_kernel<DP, false, 0, false>, dq_sm90_kernel<DP, true, 0, false>,
       dq_sm90_kernel<DP, false, 1, false>, dq_sm90_kernel<DP, true, 1, false>,
       dq_sm90_kernel<DP, false, 2, false>, dq_sm90_kernel<DP, true, 2, false>,
+      dq_sm90_kernel<DP, false, 3, false>, dq_sm90_kernel<DP, true, 3, false>,
       dq_sm90_kernel<DP, false, 0, true>, dq_sm90_kernel<DP, true, 0, true>,
       dq_sm90_kernel<DP, false, 1, true>, dq_sm90_kernel<DP, true, 1, true>,
       dq_sm90_kernel<DP, false, 2, true>, dq_sm90_kernel<DP, true, 2, true>};
-  static bool smem_set[12] = {};
-  const int mode = a.mk.bias ? (a.mk.dbias ? 2 : 1) : 0;
-  const int var = (a.dr.on ? 1 : 0) + 2 * mode + (a.mk.qseg ? 6 : 0);
+  static bool smem_set[14] = {};
+  const int mode = a.mk.bias ? (a.mk.dbias ? 2 : keys ? 3 : 1) : 0;
+  const int var = (a.dr.on ? 1 : 0) + 2 * mode + (a.mk.qseg ? 8 : 0);
+  const int smem = T::SMEM + (mode == 3 ? T::KEY_BIAS_BYTES : 0);
   auto kern = kerns[var];
-  if ((err = allow_smem(kern, T::SMEM, smem_set[var])) != cudaSuccess) return err;
+  if ((err = allow_smem(kern, smem, smem_set[var])) != cudaSuccess) return err;
   const int nq = (d.Sq + T::BQ - 1) / T::BQ;
-  kern<<<dim3(nq, d.B * d.Hq), kThreads, T::SMEM, s>>>(
+  kern<<<dim3(nq, d.B * d.Hq), kThreads, smem, s>>>(
       tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.out), d, a.scale,
       a.causal, a.dr, a.mk);
   return cudaGetLastError();
@@ -975,9 +1106,14 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// What the wrapper's route already guarantees, checked again at the door.
-bool valid(const Args& a, std::initializer_list<const void*> ptrs) {
+// What the wrapper's route and bias class already guarantee, checked again
+// at the door: a "keys" bias does not vary along queries (query stride 0
+// or Sq = 1), and comes without segments and without dbias.
+bool valid(const Args& a, std::initializer_list<const void*> ptrs,
+           bool keys = false) {
   const Dims& d = a.dm;
+  if (keys && (!a.mk.bias || a.mk.qseg || a.mk.dbias || (a.mk.sq != 0 && d.Sq != 1)))
+    return false;
   if (d.Hq <= 0 || d.Hk <= 0 || d.Hq % d.Hk != 0 || d.D < 8 || d.D > 128 ||
       d.D % 8 != 0 || static_cast<long long>(d.B) * d.Hq > 65535)
     return false;
@@ -992,7 +1128,8 @@ bool valid(const Args& a, std::initializer_list<const void*> ptrs) {
 // launch's CUDA error code (0 on success). bf16 tensors as in the header
 // comment; `seed` is a device pointer to one int32 (NULL without dropout);
 // the bias, segment and dbias arguments as flash_attention.cu's entries
-// take them.
+// take them. dq and dkv also take `bias_keys`, the bias class the wrapper
+// chose (`flash_bias_class`): 1 "keys", 0 "plane".
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                               void* out, void* lse, int B, int Sq, int Sk,
                               int Hq, int Hk, int D, float scale, int causal,
@@ -1015,7 +1152,8 @@ extern "C" int flash_dq_sm90(const void* q, const void* k, const void* v,
                              int Sk, int Hq, int Hk, int D, float scale,
                              int causal, int drop_on, int thresh,
                              float keep_scale, const void* seed,
-                             PTK_MASK_PARAMS, void* dbias, void* stream) {
+                             PTK_MASK_PARAMS, void* dbias, int bias_keys,
+                             void* stream) {
   Args a = make_args(q, k, v, B, Sq, Sk, Hq, Hk, D, scale, causal, drop_on,
                      thresh, keep_scale, seed, PTK_MASK_ARGS);
   a.dout = dout;
@@ -1024,10 +1162,11 @@ extern "C" int flash_dq_sm90(const void* q, const void* k, const void* v,
   a.out = dq;
   a.mk.dbias = static_cast<float*>(dbias);
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  if (!valid(a, {q, k, v, dout, dq}))
+  if (!valid(a, {q, k, v, dout, dq}, bias_keys))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(D <= 64 ? launch_dq<64>(a, s) : launch_dq<128>(a, s));
+  return static_cast<int>(D <= 64 ? launch_dq<64>(a, bias_keys, s)
+                                  : launch_dq<128>(a, bias_keys, s));
 }
 
 extern "C" int flash_dkv_sm90(const void* q, const void* k, const void* v,
@@ -1036,7 +1175,7 @@ extern "C" int flash_dkv_sm90(const void* q, const void* k, const void* v,
                               int Sq, int Sk, int Hq, int Hk, int D,
                               float scale, int causal, int drop_on,
                               int thresh, float keep_scale, const void* seed,
-                              PTK_MASK_PARAMS, void* stream) {
+                              PTK_MASK_PARAMS, int bias_keys, void* stream) {
   Args a = make_args(q, k, v, B, Sq, Sk, Hq, Hk, D, scale, causal, drop_on,
                      thresh, keep_scale, seed, PTK_MASK_ARGS);
   a.dout = dout;
@@ -1045,8 +1184,9 @@ extern "C" int flash_dkv_sm90(const void* q, const void* k, const void* v,
   a.dk = dk;
   a.dv = dv;
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  if (!valid(a, {q, k, v, dout, dk, dv}))
+  if (!valid(a, {q, k, v, dout, dk, dv}, bias_keys))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(D <= 64 ? launch_dkv<64>(a, s) : launch_dkv<128>(a, s));
+  return static_cast<int>(D <= 64 ? launch_dkv<64>(a, bias_keys, s)
+                                  : launch_dkv<128>(a, bias_keys, s));
 }

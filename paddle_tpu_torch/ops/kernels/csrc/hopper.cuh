@@ -79,6 +79,34 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (clock64() - t0 > kWatchdogCycles) __trap();
 }
 
+// ---- named barriers ---------------------------------------------------------
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `n` threads, whole warps:
+// sync waits until n threads have reached it, its own warp's included;
+// arrive counts its warp's threads and goes on.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// 8 or 16 bytes of shared memory at the shared-window address `addr` (as
+// smem_u32 gives it), by ld.shared: a pointer that has lost its address
+// space would take a generic load.
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float4 lds_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
 // ---- TMA ------------------------------------------------------------------
 
 // Box at element coordinates (c0, c1, c2, c3) of a rank-4 map into shared

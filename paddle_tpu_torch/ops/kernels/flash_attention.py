@@ -39,13 +39,19 @@ and 16-byte aligned take the wgmma kernels (TMA needs those strides and
 alignments), everything else (fp32, whose contract is exact fp32 where
 the tensor cores would give TF32; head dims above 128) the FMA kernels.
 Both routes take the bias (a strided fp32 view: broadcast dims are never
-materialised), the segment words and the dbias output.
+materialised), the segment words and the dbias output. The wgmma dq and
+dkv kernels take a bias in one of two classes, ``flash_bias_class``'s
+choice: "keys" (it does not vary along queries, as every padding mask)
+is read once per key, "plane" (every other bias, and any with segments
+or dbias) element by element.
 Each kernel counts its own launches: ``flash_fwd.launches``,
 ``flash_dq.launches`` and ``flash_dkv.launches`` the FMA kernels',
 ``flash_fwd.wgmma.launches``, ``flash_dq.wgmma.launches`` and
 ``flash_dkv.wgmma.launches`` the wgmma kernels'; a launch with a bias
 (its own template instantiation on both routes) counts instead on
-``.bias.launches`` (FMA) or ``.wgmma_bias.launches`` (wgmma).
+``.bias.launches`` (FMA) or ``.wgmma_bias.launches`` (wgmma; the "plane"
+class in dq and dkv), and a wgmma dq or dkv launch of the "keys" class on
+``.wgmma_keybias.launches``.
 ``flash_attention_ext`` is the differentiable entry (a
 ``torch.autograd.Function`` saving ``(q, k, v, out, lse)`` like
 ``_fa_fwd``/``_fa_bwd``); ``flash_chunk_fwd`` / ``flash_chunk_bwd`` are
@@ -64,8 +70,9 @@ from . import _build
 __all__ = ["flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_plain",
            "flash_dq_plain", "flash_dkv_plain", "flash_dbias_broadcast",
            "flash_attention_ext", "flash_chunk_fwd", "flash_chunk_bwd",
-           "flash_route", "Segments", "encode_segments", "dropout_keep_mask",
-           "dropout_threshold", "MAX_HEAD_DIM", "WGMMA_MAX_HEAD_DIM"]
+           "flash_route", "flash_bias_class", "Segments", "encode_segments",
+           "dropout_keep_mask", "dropout_threshold", "MAX_HEAD_DIM",
+           "WGMMA_MAX_HEAD_DIM"]
 
 MAX_HEAD_DIM = 256
 WGMMA_MAX_HEAD_DIM = 128
@@ -466,6 +473,23 @@ def flash_route(dtype: torch.dtype, head_dim: int,
     return "fma"
 
 
+def flash_bias_class(shape4: Sequence[int], strides4: Sequence[int],
+                     segments: bool = False, dbias: bool = False) -> str:
+    """The bias class a wgmma dq or dkv launch takes, for a bias viewed as
+    ``[B, Hq, Sq, Sk]`` with element strides ``strides4`` (``_bias4``'s
+    view): ``"keys"`` when it does not vary along queries (query stride 0,
+    or Sq = 1), as ``[B,1,1,Sk]``, ``[1,Hq,1,Sk]``, ``[B,Hq,1,Sk]`` and
+    every padding mask, read once per key; ``"plane"`` otherwise, read
+    element by element. A call with segments or a dbias output takes
+    "plane": the "keys" kernels are built without either."""
+    if len(shape4) != 4 or len(strides4) != 4:
+        raise ValueError(f"flash_bias_class: a 4-d view, got shape "
+                         f"{tuple(shape4)}, strides {tuple(strides4)}")
+    if segments or dbias:
+        return "plane"
+    return "keys" if strides4[2] == 0 or shape4[2] == 1 else "plane"
+
+
 def _route(*tensors: torch.Tensor) -> str:
     q = tensors[0]
     return flash_route(q.dtype, q.shape[-1], [t.data_ptr() for t in tensors])
@@ -496,7 +520,8 @@ def _drop_args(rate: float, seed: Optional[torch.Tensor], like):
 
 def _entry_args(dims, scale, causal, rate, seed, q, route, mask, *extra):
     """The scalar and mask arguments of a C entry, then ``extra`` (dq's
-    dbias pointer); the wgmma entries take no dtype code (bf16 only)."""
+    dbias pointer; the wgmma dq's and dkv's bias class); the wgmma entries
+    take no dtype code (bf16 only)."""
     dtype = () if route == "wgmma" else (_DTYPE_CODES[q.dtype],)
     return (*dims, float(scale), int(bool(causal)),
             *_drop_args(rate, seed, q), *mask, *extra, *dtype,
@@ -504,15 +529,17 @@ def _entry_args(dims, scale, causal, rate, seed, q, route, mask, *extra):
 
 
 def _launch_on(route: str, wrapper, entry: str, tensors, args,
-               bias) -> None:
+               bias, keys: bool = False) -> None:
     """Launch C entry ``entry`` (``<entry>_sm90`` of
     ``flash_attention_sm90`` on the wgmma route, else of
     ``flash_attention``), counted on ``wrapper``'s counter of that route,
-    and with a ``bias`` on the counter of that route's bias instantiation;
-    a non-zero CUDA error code raises."""
+    and with a ``bias`` on the counter of that route's bias instantiation
+    (with ``keys``, the wgmma "keys" class's); a non-zero CUDA error code
+    raises."""
     if route == "wgmma":
         lib = _build.load("flash_attention_sm90")
-        counter = wrapper.wgmma_bias if bias is not None else wrapper.wgmma
+        counter = (wrapper.wgmma_keybias if keys else
+                   wrapper.wgmma_bias if bias is not None else wrapper.wgmma)
         entry += "_sm90"
     else:
         lib = _build.load("flash_attention")
@@ -539,10 +566,26 @@ def _fwd_launch(q, k, v, causal, scale, rate, seed, bias=None, seg=None,
     return out, lse
 
 
+def _keys_class(route: str, bias32, seg, dbias: bool = False,
+                bias_class: Optional[str] = None) -> bool:
+    """Whether a dq or dkv launch on ``route`` takes the "keys" bias
+    class: ``bias_class`` where given, else ``flash_bias_class``'s choice
+    (the FMA kernels have no classes)."""
+    if route != "wgmma" or bias32 is None:
+        return False
+    return (bias_class or flash_bias_class(
+        bias32.shape, bias32.stride(), seg is not None, dbias)) == "keys"
+
+
 def _dq_launch(q, k, v, do, lse, delta, causal, scale, rate, seed,
-               bias=None, seg=None, dbias=False, route=None):
+               bias=None, seg=None, dbias=False, route=None,
+               bias_class=None):
     """``route`` as in ``_fwd_launch``; ``dbias`` also returns ds as a
-    fp32 [B, Hq, Sq, Sk] tensor (zero where the kernel skips a tile)."""
+    fp32 [B, Hq, Sq, Sk] tensor (zero where the kernel skips a tile).
+    ``bias_class`` defaults to ``flash_bias_class``'s choice; the on-card
+    checks also name "plane" for a "keys" bias, to hold the two classes
+    to the same bits (the kernel refuses a "keys" class for a bias that
+    varies along queries)."""
     dims = _check(q, k, v, do)
     b, sq, sk, hq, _, _ = dims
     _check_stat("lse", lse, b, hq, sq)
@@ -554,15 +597,18 @@ def _dq_launch(q, k, v, do, lse, delta, causal, scale, rate, seed,
     db = (torch.zeros((b, hq, sq, sk), dtype=torch.float32, device=q.device)
           if dbias else None)
     route = route or _route(q, k, v, do, dq)
+    keys = _keys_class(route, bias32, seg, dbias, bias_class)
+    extra = (_build.ptr(db),) + ((int(keys),) if route == "wgmma" else ())
     _launch_on(route, flash_dq, "flash_dq", (q, k, v, do, lse, delta, dq),
                _entry_args(dims, scale, causal, rate, seed, q, route, mask,
-                           _build.ptr(db)), bias)
+                           *extra), bias, keys)
     return (dq, db) if dbias else dq
 
 
 def _dkv_launch(q, k, v, do, lse, delta, causal, scale, rate, seed,
-                bias=None, seg=None, route=None):
-    """``route`` as in ``_fwd_launch``."""
+                bias=None, seg=None, route=None, bias_class=None):
+    """``route`` as in ``_fwd_launch``, ``bias_class`` as in
+    ``_dq_launch``."""
     dims = _check(q, k, v, do)
     b, sq, _, hq, _, _ = dims
     _check_stat("lse", lse, b, hq, sq)
@@ -571,10 +617,12 @@ def _dkv_launch(q, k, v, do, lse, delta, causal, scale, rate, seed,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     route = route or _route(q, k, v, do, dk, dv)
+    keys = _keys_class(route, bias32, seg, bias_class=bias_class)
+    extra = (int(keys),) if route == "wgmma" else ()
     _launch_on(route, flash_dkv, "flash_dkv",
                (q, k, v, do, lse, delta, dk, dv),
-               _entry_args(dims, scale, causal, rate, seed, q, route, mask),
-               bias)
+               _entry_args(dims, scale, causal, rate, seed, q, route, mask,
+                           *extra), bias, keys)
     return dk, dv
 
 
@@ -596,8 +644,9 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
              seg: Optional[Segments] = None, dbias: bool = False):
     """dq, or ``(dq, dbias)`` with ``dbias``: a dq kernel on the card, by
     ``flash_route`` (``flash_dq.wgmma.launches`` or
-    ``flash_dq.launches``, or with a bias ``.wgmma_bias`` / ``.bias``),
-    ``flash_dq_plain`` on the CPU."""
+    ``flash_dq.launches``, or with a bias ``.wgmma_bias`` / ``.bias``, a
+    "keys" bias on the wgmma route ``.wgmma_keybias``), ``flash_dq_plain``
+    on the CPU."""
     return _build.dispatch(flash_dq_plain, _dq_launch, q, k, v, do, lse,
                            delta, causal, scale, rate, seed, bias, seg,
                            dbias)
@@ -609,7 +658,8 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
               seg: Optional[Segments] = None):
     """(dk, dv): a dkv kernel on the card, by ``flash_route``
     (``flash_dkv.wgmma.launches`` or ``flash_dkv.launches``, or with a
-    bias ``.wgmma_bias`` / ``.bias``), ``flash_dkv_plain`` on the CPU."""
+    bias ``.wgmma_bias`` / ``.bias``, a "keys" bias on the wgmma route
+    ``.wgmma_keybias``), ``flash_dkv_plain`` on the CPU."""
     return _build.dispatch(flash_dkv_plain, _dkv_launch, q, k, v, do, lse,
                            delta, causal, scale, rate, seed, bias, seg)
 
@@ -629,6 +679,8 @@ for _wrapper in (flash_fwd, flash_dq, flash_dkv):
     _wrapper.wgmma = KernelCount()
     _wrapper.bias = KernelCount()
     _wrapper.wgmma_bias = KernelCount()
+for _wrapper in (flash_dq, flash_dkv):
+    _wrapper.wgmma_keybias = KernelCount()
 
 
 def _delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:

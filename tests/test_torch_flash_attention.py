@@ -21,6 +21,7 @@ import ctypes
 import importlib.util
 import math
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -456,7 +457,8 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
 
 def _all_counters():
     return [c for w in (tfa.flash_fwd, tfa.flash_dq, tfa.flash_dkv)
-            for c in (w, w.wgmma, w.bias, w.wgmma_bias)]
+            for c in (w, w.wgmma, w.bias, w.wgmma_bias)] + [
+                tfa.flash_dq.wgmma_keybias, tfa.flash_dkv.wgmma_keybias]
 
 
 def test_cpu_call_counts_no_launch_on_either_route():
@@ -477,8 +479,12 @@ def test_cpu_call_counts_no_launch_on_either_route():
 def test_bias_launches_count_on_their_own_instantiation(monkeypatch, dtype,
                                                         entry):
     """A launch with a bias counts on its route's bias counter
-    (``.wgmma_bias`` or ``.bias``) and on no other; a launch with segment
-    words and no bias counts on the bias-free counter."""
+    (``.wgmma_bias`` or ``.bias``) and on no other; on the wgmma route a
+    dq or dkv launch of the "keys" bias class (a [1,1,1,Sk] key bias)
+    counts on ``.wgmma_keybias`` instead, and one of the "plane" class (a
+    [1,1,Sq,Sk] bias, or a key bias with segments) on ``.wgmma_bias``; a
+    launch with segment words and no bias counts on the bias-free
+    counter."""
     libs = {n: _fake_library(n)
             for n in ("flash_attention", "flash_attention_sm90")}
     monkeypatch.setattr(_build, "load", libs.__getitem__)
@@ -487,12 +493,17 @@ def test_bias_launches_count_on_their_own_instantiation(monkeypatch, dtype,
     do = q.clone()
     lse = torch.zeros(1, 4, 8)
     bias = torch.zeros(1, 1, 1, 8)
+    plane = torch.zeros(1, 1, 8, 8)
     words = tfa.encode_segments(torch.zeros(1, 8, dtype=torch.int32))
     seg = tfa.Segments(words, words, False)
     wrappers = (tfa.flash_fwd, tfa.flash_dq, tfa.flash_dkv)
     base = [w.wgmma if entry == "sm90" else w for w in wrappers]
     own = [w.wgmma_bias if entry == "sm90" else w.bias for w in wrappers]
-    for mask, moves in (((bias, None), own), ((None, seg), base)):
+    keys = own if entry != "sm90" else [tfa.flash_fwd.wgmma_bias,
+                                        tfa.flash_dq.wgmma_keybias,
+                                        tfa.flash_dkv.wgmma_keybias]
+    for mask, moves in (((bias, None), keys), ((plane, None), own),
+                        ((bias, seg), own), ((None, seg), base)):
         counters = _all_counters()
         before = [c.launches for c in counters]
         tfa._fwd_launch(q, k, v, False, 0.125, 0.0, None, *mask)
@@ -965,3 +976,125 @@ def test_launches_pass_bias_strides_segment_words_and_dbias(monkeypatch):
     assert calls[2][1][7 + 20] is None and calls[2][1][7 + 17] is None
     assert db.dtype == torch.float32 and tuple(db.shape) == (1, 4, 8, 8)
     assert not db.any()
+    # the bias class: dq and dkv with a [1,1,1,Sk] bias take "keys", with
+    # segments or dbias "plane"
+    assert calls[1][1][7 + 21] == 0 and calls[2][1][7 + 21] == 1
+
+
+# ---------------------------------------------------------------------------
+# the wgmma dq and dkv kernels' bias classes
+# ---------------------------------------------------------------------------
+
+def _class_of(shape, b=2, hq=4, sq=16, sk=24, **kw):
+    b4 = tfa._bias4(torch.zeros(shape), b, hq, sq, sk)
+    return tfa.flash_bias_class(b4.shape, b4.stride(), **kw)
+
+
+@pytest.mark.parametrize("shape,sq,kw,want", [
+    ((2, 1, 1, 24), 16, {}, "keys"),            # BERT's padding mask
+    ((1, 4, 1, 24), 16, {}, "keys"),
+    ((2, 4, 1, 24), 16, {}, "keys"),
+    ((24,), 16, {}, "keys"),
+    ((2, 1, 1, 24), 1, {}, "keys"),             # Sq = 1, query stride 24
+    ((2, 4, 16, 24), 16, {}, "plane"),
+    ((2, 1, 16, 24), 16, {}, "plane"),
+    ((2, 4, 16, 1), 16, {}, "plane"),           # varies along queries
+    ((2, 1, 1, 24), 16, {"segments": True}, "plane"),
+    ((2, 4, 1, 24), 1, {"dbias": True}, "plane"),
+], ids=["B11S", "1H1S", "BH1S", "S", "one-query", "BHSS", "B1SS", "BHS1",
+        "segments", "dbias"])
+def test_flash_bias_class(shape, sq, kw, want):
+    """"keys" for a bias that does not vary along queries (query stride 0
+    or Sq = 1), "plane" for every other bias and for any call with
+    segments or a dbias output."""
+    if shape == (2, 1, 1, 24) and sq == 1:
+        b4 = tfa._bias4(torch.zeros(shape), 2, 4, 1, 24)
+        assert b4.stride()[2] != 0
+    assert _class_of(shape, sq=sq, **kw) == want
+    with pytest.raises(ValueError):
+        tfa.flash_bias_class((2, 24), (24, 1))
+
+
+_SM90_SRC = os.path.join(os.path.dirname(tfa.__file__), "csrc",
+                         "flash_attention_sm90.cu")
+
+
+def _sm90_source():
+    with open(_SM90_SRC) as f:
+        return f.read()
+
+
+def _cu_index_fn(name):
+    """The source's ``__device__ int name(int ...) { return expr; }`` as a
+    Python function. Its expression uses only *, +, >> and & on
+    non-negative ints, whose precedence and values Python shares with C."""
+    m = re.search(r"__device__ __forceinline__ int " + name +
+                  r"\(([^)]*)\) \{\s*return ([^;]+);\s*\}", _sm90_source())
+    assert m, name
+    args = [a.split()[-1] for a in m.group(1).split(",")]
+    expr = " ".join(m.group(2).split())
+    assert re.fullmatch(r"[\w\s*+&>()]+", expr), expr
+    return eval("lambda %s: %s" % (", ".join(args), expr))
+
+
+@pytest.mark.parametrize("sk", [512, 333, 130])
+@pytest.mark.parametrize("shape", ["B11S", "1H1S"])
+def test_keys_class_read_pattern_gives_each_key_its_bias(sk, shape):
+    """The "keys" kernels' reads, emulated over the flat fp32 buffer the
+    wrapper passes (offsets b*sb + h*sh + key*sk): in dq the producer warp
+    fills each of the 4 stages with 64 key biases (0 past Sk), lane j and
+    j + 32, key j at keys_slot(j), and a consumer thread (w, l) reads the
+    16 floats from 16 (l & 3) as 4 float4, element e of column pair i at
+    4 (i >> 1) + 2 (i & 1) + e, for its columns frag_col(l, i, e); in dkv
+    each thread holds the biases of its keys frag_row(w, l, 0 and 2) of
+    its warpgroup. Every value read equals _bias4(...)[b, h, 0, key], and
+    0 past Sk; the slots of a tile are a permutation. keys_slot, frag_col,
+    frag_row and the consumer's byte offset per column group are read from
+    the CUDA source, so a change to the kernel's layout fails here."""
+    _keys_slot = _cu_index_fn("keys_slot")
+    _frag_col = _cu_index_fn("frag_col")
+    _frag_row = _cu_index_fn("frag_row")
+    m = re.search(r"smem_u32\(kbias \+ s \* BK\) \+ (\d+) \* \(l & 3\);",
+                  _sm90_source())
+    assert m and int(m.group(1)) == 16 * 4     # 16 floats per column group
+    assert sorted(_keys_slot(j) for j in range(64)) == list(range(64))
+    b, hq, sq, bk, stages = 2, 4, 7, 64, 4
+    rng = np.random.RandomState(sk)
+    bshape = (b, 1, 1, sk) if shape == "B11S" else (1, hq, 1, sk)
+    bias = torch.from_numpy(rng.standard_normal(bshape).astype(np.float32))
+    b4 = tfa._bias4(bias, b, hq, sq, sk)
+    assert tfa.flash_bias_class(b4.shape, b4.stride()) == "keys"
+    flat = bias.reshape(-1)
+    sb, sh, _, skk = b4.stride()
+
+    def key_bias(bi, h, key):
+        return float(flat[bi * sb + h * sh + key * skk]) if key < sk else 0.0
+
+    want = lambda bi, h, key: (float(b4[bi, h, 0, key])  # noqa: E731
+                               if key < sk else 0.0)
+    nk = -(-sk // bk)
+    for bi in range(b):
+        for h in range(hq):
+            stage = np.full((stages, bk), np.nan, np.float32)
+            for kt in range(nk):                       # dq: producer, then
+                s = kt % stages                        # both consumers
+                for lane in range(32):
+                    for rr in range(bk // 32):
+                        j = lane + 32 * rr
+                        stage[s, _keys_slot(j)] = key_bias(bi, h, kt * bk + j)
+                for w in range(4):
+                    for lane in range(32):
+                        row = stage[s, 16 * (lane & 3):16 * (lane & 3) + 16]
+                        f4 = row.reshape(4, 4)            # the 4 float4
+                        for i in range(bk // 8):
+                            for e in range(2):
+                                got = f4[i >> 1, 2 * (i & 1) + e]
+                                assert got == np.float32(want(
+                                    bi, h, kt * bk + _frag_col(lane, i, e)))
+            for kt0 in range(0, nk * bk, 128):         # dkv: per CTA of 128
+                for cw in range(2):                    # keys, two consumers
+                    for w in range(4):
+                        for lane in range(32):
+                            for r in range(2):
+                                key = kt0 + 64 * cw + _frag_row(w, lane, 2 * r)
+                                assert key_bias(bi, h, key) == want(bi, h, key)
