@@ -36,12 +36,12 @@ Phases, each fatal on failure:
    launch exactly the kernels of ``flash_route``'s choice, a bias call
    their bias instantiations, each counted on its own counter; a bias of
    the "keys" class (``flash_bias_class``: it does not vary along
-   queries) takes the wgmma dq and dkv's "keys" instantiations, whose dq,
-   dk and dv must equal the "plane" class's on the same bias,
-   materialised along queries, bit for bit (BERT's mask, a broadcast
-   bias, key masks at a ragged edge, causal or with dropout, and one
-   query). The wgmma dq and dkv are also timed bias-free and with the
-   "plane" class at BERT's shape.
+   queries) takes the wgmma forward's, dq's and dkv's "keys"
+   instantiations, whose out, lse, dq, dk and dv must equal the "plane"
+   class's on the same bias, materialised along queries, bit for bit
+   (BERT's mask, a broadcast bias, key masks at a ragged edge, causal or
+   with dropout, and one query). The wgmma forward, dq and dkv are also
+   timed bias-free and with the "plane" class at BERT's shape.
 4. serve: two cells behind the continuous-batching ``DecodeServer``, each
    with random weights from ``--seed`` at full width and depth, fp32: 8
    mixed-length prompts from client threads, 32 greedy tokens each.
@@ -87,10 +87,10 @@ Phases, each fatal on failure:
       a split at 1/4-3/4 of the length, 15 % of valid positions masked to
       id 103 and labelled), 20 steps on one batch: the loss must fall by
       at least 0.5 and every step must launch exactly 24 flash
-      forwards (the wgmma bias instantiation), 24 dq and 24 dkv (the
-      wgmma "keys" instantiations; none bias-free, none "plane", none on
-      the FMA route), 50 LayerNorm, two CE forward and two CE backward
-      kernels (MLM and NSP), and no dbias is computed. Reports ms/step, tokens/s (all and valid positions), peak
+      forwards, 24 dq and 24 dkv (the wgmma "keys" instantiations; none
+      bias-free, none "plane", none on the FMA route), 50 LayerNorm, two
+      CE forward and two CE backward kernels (MLM and NSP), and no dbias
+      is computed. Reports ms/step, tokens/s (all and valid positions), peak
       memory and MFU (6 x matmul params + 12 L S H per token over 989
       TFLOP/s). With ``--profile``, one step goes under
       ``torch.profiler``.
@@ -681,8 +681,8 @@ def _flash_case(fa, gen, case):
             if not all(torch.isfinite(t).all() for t in (dq, dk, dv, db)):
                 raise AssertionError(f"{name}: a gradient is not finite")
 
-    # the wgmma dq and dkv take a "keys" bias (one that does not vary
-    # along queries) by its own instantiations
+    # the wgmma kernels take a "keys" bias (one that does not vary along
+    # queries) by their own instantiations
     keys = False
     if route == "wgmma" and bias is not None:
         b4 = fa._bias4(bias, b, hq, sq, sk)
@@ -695,11 +695,9 @@ def _flash_case(fa, gen, case):
     dk, dv = fa.flash_dkv(q, k, v, do, lsep, delta, *args)
     moved = {n: c - before[n] for n, c in _counts().items()
              if c != before[n]}
-    sfx = _sfx(route) + ("_bias" if bias is not None else "")
+    sfx = _sfx(route) + ("_keybias" if keys else
+                         "_bias" if bias is not None else "")
     expect = {f"flash_{kind}{sfx}": 1 for kind in ("fwd", "dq", "dkv")}
-    if keys:
-        expect = {"flash_fwd_wgmma_bias": 1, "flash_dq_wgmma_keybias": 1,
-                  "flash_dkv_wgmma_keybias": 1}
     if moved != expect:
         raise AssertionError(f"{name}: launches {moved}, expected {expect}")
     hold(_sfx(route), out, lse, dq, dk, dv, db)
@@ -712,22 +710,25 @@ def _flash_case(fa, gen, case):
         pargs = (causal, scale, rate, seed, plane, seg)
         before = _counts()
         # named: with one query (Sq = 1) every bias is of the keys class
-        got = (fa._dq_launch(q, k, v, do, lsep, delta, *pargs,
+        got = (*fa._fwd_launch(q, k, v, *pargs, bias_class="plane"),
+               fa._dq_launch(q, k, v, do, lsep, delta, *pargs,
                              bias_class="plane"),
                *fa._dkv_launch(q, k, v, do, lsep, delta, *pargs,
                                bias_class="plane"))
         moved = {n: c - before[n] for n, c in _counts().items()
                  if c != before[n]}
-        if moved != {"flash_dq_wgmma_bias": 1, "flash_dkv_wgmma_bias": 1}:
+        if moved != {f"flash_{kind}_wgmma_bias": 1
+                     for kind in ("fwd", "dq", "dkv")}:
             raise AssertionError(f"{name}: the plane bias {shape} launched "
                                  f"{moved}")
-        for gname, want, g in zip(("dq", "dk", "dv"), (dq, dk, dv), got):
+        for gname, want, g in zip(("out", "lse", "dq", "dk", "dv"),
+                                  (out, lse, dq, dk, dv), got):
             if not torch.equal(g, want):
                 raise AssertionError(
                     f"{name}: {gname} of the keys class differs from the "
                     f"plane class's at {int((g != want).sum())} entries")
-        log(f"    dq, dk, dv of the keys class equal the plane class's "
-            f"(bias {shape}) bit for bit")
+        log(f"    out, lse, dq, dk, dv of the keys class equal the plane "
+            f"class's (bias {shape}) bit for bit")
     if route == "wgmma":
         out, lse = fa._fwd_launch(q, k, v, *args, route="fma")
         dq = fa._dq_launch(q, k, v, do, lsep, delta, *args, dbias,
@@ -842,10 +843,9 @@ def _flash_timings(fa, gen, case, kinds, bias_as=None):
 
 FLASH_KINDS = ("fwd", "fwd_wgmma", "dq", "dq_wgmma", "dkv", "dkv_wgmma")
 WGMMA_KINDS = ("fwd_wgmma", "dq_wgmma", "dkv_wgmma")
-WGMMA_BWD_KINDS = ("dq_wgmma", "dkv_wgmma")
 FMA_KINDS = ("fwd", "dq", "dkv")
 # the timed shapes: GPT-2's and Llama-2 7B's training attention on both
-# routes; BERT-large's at its dropout 0.1 (the bias instantiations its
+# routes; BERT-large's at its dropout 0.1 (the "keys" instantiations its
 # train cell launches) and without dropout on the wgmma kernels, each
 # beside the bias-free kernels at the same shape and dropout (sdpa then
 # without the mask), and the "plane" bias class on the same mask
@@ -858,10 +858,9 @@ FLASH_TIMED = (("gpt2", "gpt2-train", FLASH_KINDS),
                ("bert_nobias", "bert-keymask-dropout", WGMMA_KINDS, "none"),
                ("bert_nobias_no_dropout", "bert-large-keymask", WGMMA_KINDS,
                 "none"),
-               ("bert_plane", "bert-keymask-dropout", WGMMA_BWD_KINDS,
+               ("bert_plane", "bert-keymask-dropout", WGMMA_KINDS, "plane"),
+               ("bert_plane_no_dropout", "bert-large-keymask", WGMMA_KINDS,
                 "plane"),
-               ("bert_plane_no_dropout", "bert-large-keymask",
-                WGMMA_BWD_KINDS, "plane"),
                ("bert_oracle_fp32", "bert-oracle-keymask-fp32", FMA_KINDS))
 
 
@@ -1314,9 +1313,8 @@ def _wrappers():
         w = getattr(fa, "flash_" + kind)
         out.update({f"flash_{kind}": w, f"flash_{kind}_wgmma": w.wgmma,
                     f"flash_{kind}_bias": w.bias,
-                    f"flash_{kind}_wgmma_bias": w.wgmma_bias})
-        if kind != "fwd":
-            out[f"flash_{kind}_wgmma_keybias"] = w.wgmma_keybias
+                    f"flash_{kind}_wgmma_bias": w.wgmma_bias,
+                    f"flash_{kind}_wgmma_keybias": w.wgmma_keybias})
     return out
 
 
@@ -1335,17 +1333,16 @@ def _expected_counts(layers: int, steps: int, route: str,
     """Per train step: one flash forward, one dq and one dkv per layer on
     the kernels of ``route`` ("wgmma" for bf16, "fma" for fp32), their
     bias instantiations with ``bias`` (a padding mask: on the wgmma route
-    dq and dkv take the "keys" class), and none of the others; ``norms``
-    LayerNorms (GPT-2: two per layer and the final one); ``ces`` CE
-    forwards and as many CE backwards (GPT-2: one)."""
+    the "keys" class), and none of the others; ``norms`` LayerNorms
+    (GPT-2: two per layer and the final one); ``ces`` CE forwards and as
+    many CE backwards (GPT-2: one)."""
     norms = 2 * layers + 1 if norms is None else norms
-    sfx = _sfx(route) + ("_bias" if bias else "")
-    bwd = _sfx(route) + ("_keybias" if route == "wgmma" else "_bias") \
-        if bias else sfx
+    sfx = _sfx(route) + (("_keybias" if route == "wgmma" else "_bias")
+                         if bias else "")
     out = dict.fromkeys(_wrappers(), 0)
     out.update({f"flash_fwd{sfx}": layers * steps,
-                f"flash_dq{bwd}": layers * steps,
-                f"flash_dkv{bwd}": layers * steps,
+                f"flash_dq{sfx}": layers * steps,
+                f"flash_dkv{sfx}": layers * steps,
                 "layer_norm": norms * steps,
                 "softmax_xent_fwd": ces * steps,
                 "softmax_xent_bwd": ces * steps})
@@ -1903,8 +1900,7 @@ def main(argv=None) -> int:
         # oracle's (FMA)
         for kind in FLASH_KINDS:
             rows["flash_" + kind] = timed["gpt2"].pop(kind)
-        rows["flash_fwd_wgmma_bias"] = timed["bert"].pop("fwd_wgmma")
-        for kind in WGMMA_BWD_KINDS:
+        for kind in WGMMA_KINDS:
             rows[f"flash_{kind}_keybias"] = timed["bert"].pop(kind)
             rows[f"flash_{kind}_bias"] = dict(
                 timed["bert_plane"].pop(kind),
@@ -1978,12 +1974,12 @@ def main(argv=None) -> int:
                             "paddle_tpu/ops/pallas/flash_attention.py:455"),
     }
     # the bias instantiations (each counted on its own counter): the BERT
-    # paths, where every attention carries the mask; the wgmma dq and dkv
+    # paths, where every attention carries the mask; the wgmma kernels
     # take it as a "keys" bias, and their "plane" instantiations run for
     # every other bias (no main path has one)
     for kind in FLASH_KINDS:
         sources[f"flash_{kind}_bias"] = sources[f"flash_{kind}"]
-    for kind in WGMMA_BWD_KINDS:
+    for kind in WGMMA_KINDS:
         sources[f"flash_{kind}_keybias"] = sources[f"flash_{kind}"]
     report["launches_by_path"] = by_path
     kernels = []

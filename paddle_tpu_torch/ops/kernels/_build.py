@@ -98,13 +98,11 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
         "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "flash_attention_sm90": {
-        # bf16 only: as "flash_attention" without the dtype code; dq and
-        # dkv also take the bias class (1 "keys", 0 "plane") before the
-        # stream
+        # bf16 only: as "flash_attention" without the dtype code; each
+        # also takes the bias class (1 "keys", 0 "plane") before the stream
         **{fn: ([ctypes.c_void_p] * n + _FLASH_SCALARS + _FLASH_MASK
                 + [ctypes.c_void_p] * (fn == "flash_dq_sm90")
-                + [ctypes.c_int] * (fn != "flash_fwd_sm90")
-                + [ctypes.c_void_p], ctypes.c_int)
+                + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
            for fn, n in (("flash_fwd_sm90", 5), ("flash_dq_sm90", 7),
                          ("flash_dkv_sm90", 8))},
         "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),

@@ -21,29 +21,32 @@
 // keep their registers and wgmma waits. The bias joins in natural units,
 // (s scale + b) log2(e) in the forward's exp2 domain, and as
 // exp(fl(fl(s scale) + b) - lse) in the backward, the plain version's order.
-// The backward knows two bias classes, chosen on the host
+// Every pass knows two bias classes, chosen on the host
 // (`flash_bias_class`):
 // - "keys", a bias that does not vary along queries (query stride 0 or
 //   Sq = 1: every padding mask, [B,1,1,Sk] as BERT's): dkv holds the bias
 //   of its thread's two keys in two registers, read once per q head (once
-//   per CTA when the heads share it); in dq a producer warp copies each
-//   K/V stage's 64 key biases (0 past Sk) into the stage, arriving on its
-//   full barrier, ordered by thread (keys_slot), and a consumer loads its
-//   16 per tile as 4 x 16 bytes while its S and dP products run. No
+//   per CTA when the heads share it); in dq and the forward a producer
+//   warp copies each K stage's 64 (128) key biases into the stage,
+//   arriving on its full barrier, in the order the consumers read them
+//   (keys_slot, fwd_keys_slot), and a consumer loads its 16 (32) per tile
+//   as 4 (8) x 16 bytes (the forward's second four halfway through its
+//   scale pass). Past Sk dq's stage holds 0, the forward's -inf, which
+//   masks the ragged key edge in place of a compare per element. No
 //   per-element global load, no guard in the loop. These instantiations
 //   read shared memory by ld.shared (the stage's pointers, built from an
-//   aligned integer, would take generic loads: a tenth of dq's time) and
-//   their two consumer warpgroups take turns issuing S and dP (named
-//   barriers 1 and 2, FlashAttention-3's ping-pong), so one's
-//   elementwise pass runs beside the other's products.
+//   aligned integer, would take generic loads: a tenth of dq's time). In
+//   dq and dkv the two consumer warpgroups take turns issuing S and dP
+//   (named barriers 1 and 2, FlashAttention-3's ping-pong), so one's
+//   elementwise pass runs beside the other's products; in the forward the
+//   same turns measured 1-4 % slower on an H100, so it has none.
 // - "plane", every other bias, and any bias with segments or dbias. Simple,
 //   not fast: each consumer thread reads the bias and the segment words of
 //   its accumulator elements with plain global loads at their (row, col),
 //   guarded to row < Sq and key < Sk, on every tile (TMA zero-fills only
-//   the tiles); with segments every tile is masked element by element. The
-//   forward reads every bias this way.
+//   the tiles); with segments every tile is masked element by element.
 // Both classes add the same value in the same order, so they give the
-// same bits.
+// same bits (a row past Sq, never stored, may differ).
 //
 // What bounds it: at GPT-2's training shape (B*H = 96, S = 1024, D = 64,
 // causal) the forward does 12.9 GFLOP on 50 MB (13 us at 989 TFLOP/s,
@@ -51,7 +54,7 @@
 // the same bytes, so they are bound by operations (20 and 26 us).
 //
 // Design (FlashAttention-3's split, without its intra-warpgroup overlap;
-// its ping-pong scheduling only in the "keys" instantiations): 384
+// its ping-pong scheduling only in dq's and dkv's "keys" instantiations): 384
 // threads = three warpgroups. Warpgroup 0 is the producer: it gives up
 // registers (setmaxnreg 24) and one thread keeps
 // TMA loads in flight through a ring of stages (two; four in dq), each
@@ -143,6 +146,27 @@ __device__ __forceinline__ int keys_slot(int j) {
   return 16 * ((j & 7) >> 1) + 2 * (j >> 3) + (j & 1);
 }
 
+// The forward's stage of 128 key biases: key j (column 8 i + 2 (l & 3) + e)
+// at the slot that puts float4 i >> 1 of column group l & 3 at 4 (i >> 1) +
+// (l & 3), element 2 (i & 1) + e, so the four groups of a warp read 64
+// neighbouring bytes per ld.shared.v4 (by thread, the groups would sit 128
+// bytes apart: one bank, four ways).
+__device__ __forceinline__ int fwd_keys_slot(int j) {
+  return 16 * (j >> 4) + 4 * ((j & 7) >> 1) + 2 * ((j >> 3) & 1) + (j & 1);
+}
+
+// Key tiles of BK a forward q tile from q0 visits: tiles past its last
+// row's causal diagonal are dead.
+template <int BQ, int BK>
+__device__ __forceinline__ int fwd_key_tiles(const Dims& dm, int q0, int causal) {
+  int nk = (dm.Sk + BK - 1) / BK;
+  if (causal) {
+    const int last = q0 + BQ - 1 + dm.Sk - dm.Sq;
+    nk = last < 0 ? 0 : min(nk, last / BK + 1);
+  }
+  return nk;
+}
+
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -212,9 +236,11 @@ struct FwdTile {
   static constexpr int Q_BYTES = CH * Q_CHUNK;
   static constexpr int KV_BYTES = CH * KV_CHUNK;    // K or V, one stage
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 128;
+  static constexpr int KEY_BIAS_BYTES = STAGES * BK * 4;   // "keys" class only
 };
 
-template <int DP, bool BIAS, bool SEG>
+// BIAS: 0 none, 1 bias ("plane" class), 2 bias of the "keys" class
+template <int DP, int BIAS, bool SEG>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
@@ -231,6 +257,9 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* k_full = q_full + 1;                     // [ST]
   uint64_t* v_full = k_full + ST;                    // [ST]
   uint64_t* kv_empty = v_full + ST;                  // [ST]
+  // "keys": each K stage's 128 key biases, past the barriers' 128 bytes
+  [[maybe_unused]] float* kbias =
+      reinterpret_cast<float*>(Vs + ST * T::KV_BYTES + 128);   // [ST][BK]
 
   const int nq = (dm.Sq + BQ - 1) / BQ;
   const int qi = nq - 1 - static_cast<int>(blockIdx.x);  // long rows first
@@ -244,11 +273,17 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const int last = q0 + BQ - 1 + offset;       // tiles past it are dead
     nk = last < 0 ? 0 : min(nk, last / BK + 1);
   }
+  // under "keys" each role counts its tiles itself: one count live in
+  // every role spilled at DP = 128
+  auto key_tiles = [&]() {
+    return BIAS == 2 ? fwd_key_tiles<BQ, BK>(dm, q0, causal) : nk;
+  };
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < ST; ++s) {
-      mbar_init(k_full + s, 1);
+      // "keys": the TMA thread + the key-bias warp
+      mbar_init(k_full + s, BIAS == 2 ? 1 + 32 : 1);
       mbar_init(v_full + s, 1);
       mbar_init(kv_empty + s, 2 * 128);
     }
@@ -258,13 +293,29 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
-    // ---- producer ----
+    // ---- producer: thread 0 drives TMA; under "keys" warp 1 copies each
+    // K stage's key biases (-inf past Sk) into the stage ----
     reg_dealloc<kProducerRegs>();
-    if (threadIdx.x == 0) {
+    if (BIAS == 2 && threadIdx.x / 32 == 1) {
+      const int lane = threadIdx.x & 31;
+      const int n_tiles = key_tiles();
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s = kt % ST;
+        mbar_wait(kv_empty + s, ((kt / ST) & 1) ^ 1);
+#pragma unroll
+        for (int rr = 0; rr < BK / 32; ++rr) {
+          const int key = kt * BK + lane + 32 * rr;
+          kbias[s * BK + fwd_keys_slot(lane + 32 * rr)] =
+              key < dm.Sk ? key_bias(mk, dm, b, h, key) : -INFINITY;
+        }
+        mbar_arrive(k_full + s);
+      }
+    } else if (threadIdx.x == 0) {
+      const int n_tiles = key_tiles();
       mbar_expect_tx(q_full, T::Q_BYTES);
       for (int c = 0; c < T::CH; ++c)
         tma_load_4d(Qs + c * T::Q_CHUNK, &tq, q_full, 64 * c, h, q0, b);
-      for (int kt = 0; kt < nk; ++kt) {
+      for (int kt = 0; kt < n_tiles; ++kt) {
         const int s = kt % ST;
         mbar_wait(kv_empty + s, ((kt / ST) & 1) ^ 1);
         uint8_t* kd = Ks + s * T::KV_BYTES;
@@ -294,7 +345,7 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
     [[maybe_unused]] const float* brow[2] = {nullptr, nullptr};   // bias rows
     [[maybe_unused]] const int bsk = static_cast<int>(mk.sk);     // 0 or 1
-    if constexpr (BIAS) {
+    if constexpr (BIAS == 1) {
 #pragma unroll
       for (int r = 0; r < 2; ++r)
         brow[r] = bias_row(mk, dm, b, h, row_base + frag_row(w, l, 2 * r));
@@ -307,8 +358,9 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     float lsum[2] = {0.f, 0.f};                      // this thread's share
     const uint32_t q_addr = smem_u32(Qs) + 64 * cw * 128;
 
+    const int n_tiles = key_tiles();
     mbar_wait(q_full, 0);
-    for (int kt = 0; kt < nk; ++kt) {
+    for (int kt = 0; kt < n_tiles; ++kt) {
       const int s = kt % ST;
       const uint32_t par = (kt / ST) & 1;
       const int k0 = kt * BK;
@@ -327,30 +379,56 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_ss<BK, 0>(sc, da, db, kk > 0);
       }
       wgmma_commit();
+      // "keys": this thread's 32 key biases of the tile as 8 x 16 bytes by
+      // ld.shared, four while S runs and four halfway through the scale
+      // pass (all eight up front spill at DP = 128)
+      [[maybe_unused]] float4 kb4[BK / 16];
+      [[maybe_unused]] const uint32_t kb_addr =
+          BIAS == 2 ? smem_u32(kbias + s * BK) + 16 * (l & 3) : 0u;
+      if constexpr (BIAS == 2) {
+#pragma unroll
+        for (int f = 0; f < BK / 32; ++f) kb4[f] = lds_f4(kb_addr + 64 * f);
+      }
       wgmma_wait<0>();
       fence_regs(sc);
 
       // scale (and add the bias) into the exp2 domain; mask where the
-      // diagonal or an edge cuts, and everywhere under segments
-      const bool cut = SEG || k0 + BK > dm.Sk ||
+      // diagonal or an edge cuts, and everywhere under segments. Under
+      // "keys" the key edge is in the bias (-inf past Sk), and log2(e)
+      // joins at the max and in exp2 below: rounding is monotone, so the
+      // max of fl(y log2 e) is fl(max(y) log2 e), the "plane" class's bits
+      constexpr bool EDGE = BIAS != 2;
+      const bool cut = SEG || (EDGE && k0 + BK > dm.Sk) ||
                        (causal && k0 + BK - 1 > row_base + offset);
 #pragma unroll
-      for (int i = 0; i < BK / 8; ++i)
+      for (int i = 0; i < BK / 8; ++i) {
+        // "keys": the two key biases of this column pair
+        [[maybe_unused]] float2 kb = make_float2(0.f, 0.f);
+        if constexpr (BIAS == 2) {
+          if (i == BK / 16) {
+#pragma unroll
+            for (int f = BK / 32; f < BK / 16; ++f) kb4[f] = lds_f4(kb_addr + 64 * f);
+          }
+          kb = (i & 1) ? make_float2(kb4[i >> 1].z, kb4[i >> 1].w)
+                       : make_float2(kb4[i >> 1].x, kb4[i >> 1].y);
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float x;
-          if constexpr (BIAS) {
+          if constexpr (BIAS == 1) {
             const int c = k0 + frag_col(l, i, j);
             const float* br = brow[j >> 1];
             const float bv = br && c < dm.Sk ? br[c * bsk] : 0.f;
             x = __fmul_rn(__fadd_rn(__fmul_rn(sc[4 * i + j], scale), bv), kLog2e);
+          } else if constexpr (BIAS == 2) {
+            x = __fadd_rn(__fmul_rn(sc[4 * i + j], scale), (j & 1) ? kb.y : kb.x);
           } else {
             x = sc[4 * i + j] * scale_log2;
           }
           if (cut) {
             const int c = k0 + frag_col(l, i, j);
             const int r = row_base + frag_row(w, l, j);
-            bool dead = c >= dm.Sk || (causal && c > r + offset);
+            bool dead = (EDGE && c >= dm.Sk) || (causal && c > r + offset);
             if constexpr (SEG)
               dead = dead || !seg_sees(qw[j >> 1], seg_word(mk.kseg, b, dm.Sk, c, kNoKey),
                                        mk.seg_causal);
@@ -358,6 +436,7 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           }
           sc[4 * i + j] = x;
         }
+      }
 
       // online softmax over the two rows this thread holds
       float mx[2] = {-INFINITY, -INFINITY};
@@ -368,7 +447,8 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       float m_safe[2], alpha[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        const float mt = quad_max(mx[r]);
+        const float m_new = fmaxf(m[r], BIAS == 2 ? __fmul_rn(mt, kLog2e) : mt);
         m_safe[r] = m_new == -INFINITY ? 0.f : m_new;
         alpha[r] = exp2f(m[r] - m_safe[r]);          // 0 while m was -inf
         m[r] = m_new;
@@ -382,7 +462,8 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         float pv[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const float p = exp2f(sc[4 * i + j] - m_safe[j >> 1]);
+          const float x = BIAS == 2 ? __fmul_rn(sc[4 * i + j], kLog2e) : sc[4 * i + j];
+          const float p = exp2f(x - m_safe[j >> 1]);
           rs[j >> 1] += p;
           pv[j] = p;
           if (dr.on)
@@ -1012,7 +1093,7 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 // map holds its base address, so one cached by shape alone would read
 // another call's tensors.
 template <int DP>
-cudaError_t launch_fwd(const Args& a, cudaStream_t s) {
+cudaError_t launch_fwd(const Args& a, bool keys, cudaStream_t s) {
   using T = FwdTile<DP>;
   const Dims& d = a.dm;
   CUtensorMap tq, tk, tv;
@@ -1021,16 +1102,20 @@ cudaError_t launch_fwd(const Args& a, cudaStream_t s) {
       (err = make_map_bshd(&tk, a.k, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess ||
       (err = make_map_bshd(&tv, a.v, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess)
     return err;
-  // instantiation by (bias, segments)
-  static const decltype(&fwd_sm90_kernel<DP, false, false>) kerns[4] = {
-      fwd_sm90_kernel<DP, false, false>, fwd_sm90_kernel<DP, true, false>,
-      fwd_sm90_kernel<DP, false, true>, fwd_sm90_kernel<DP, true, true>};
-  static bool smem_set[4] = {};
-  const int var = (a.mk.bias ? 1 : 0) | (a.mk.qseg ? 2 : 0);
+  // instantiation by (bias mode, segments); the "keys" class (mode 2) has
+  // no segments
+  static const decltype(&fwd_sm90_kernel<DP, 0, false>) kerns[5] = {
+      fwd_sm90_kernel<DP, 0, false>, fwd_sm90_kernel<DP, 1, false>,
+      fwd_sm90_kernel<DP, 2, false>, fwd_sm90_kernel<DP, 0, true>,
+      fwd_sm90_kernel<DP, 1, true>};
+  static bool smem_set[5] = {};
+  const int mode = a.mk.bias ? (keys ? 2 : 1) : 0;
+  const int var = mode + (a.mk.qseg ? 3 : 0);
+  const int smem = T::SMEM + (mode == 2 ? T::KEY_BIAS_BYTES : 0);
   auto kern = kerns[var];
-  if ((err = allow_smem(kern, T::SMEM, smem_set[var])) != cudaSuccess) return err;
+  if ((err = allow_smem(kern, smem, smem_set[var])) != cudaSuccess) return err;
   const int nq = (d.Sq + T::BQ - 1) / T::BQ;
-  kern<<<dim3(nq, d.B * d.Hq), kThreads, T::SMEM, s>>>(
+  kern<<<dim3(nq, d.B * d.Hq), kThreads, smem, s>>>(
       tq, tk, tv, static_cast<bf16*>(a.out), a.lse_out, d, a.scale * kLog2e,
       a.causal, a.dr, a.scale, a.mk);
   return cudaGetLastError();
@@ -1128,22 +1213,24 @@ bool valid(const Args& a, std::initializer_list<const void*> ptrs,
 // launch's CUDA error code (0 on success). bf16 tensors as in the header
 // comment; `seed` is a device pointer to one int32 (NULL without dropout);
 // the bias, segment and dbias arguments as flash_attention.cu's entries
-// take them. dq and dkv also take `bias_keys`, the bias class the wrapper
-// chose (`flash_bias_class`): 1 "keys", 0 "plane".
+// take them. Each also takes `bias_keys`, the bias class the wrapper chose
+// (`flash_bias_class`): 1 "keys", 0 "plane".
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                               void* out, void* lse, int B, int Sq, int Sk,
                               int Hq, int Hk, int D, float scale, int causal,
                               int drop_on, int thresh, float keep_scale,
                               const void* seed, PTK_MASK_PARAMS,
-                              void* stream) {
+                              int bias_keys, void* stream) {
   Args a = make_args(q, k, v, B, Sq, Sk, Hq, Hk, D, scale, causal, drop_on,
                      thresh, keep_scale, seed, PTK_MASK_ARGS);
   a.out = out;
   a.lse_out = static_cast<float*>(lse);
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  if (!valid(a, {q, k, v, out})) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid(a, {q, k, v, out}, bias_keys))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(D <= 64 ? launch_fwd<64>(a, s) : launch_fwd<128>(a, s));
+  return static_cast<int>(D <= 64 ? launch_fwd<64>(a, bias_keys, s)
+                                  : launch_fwd<128>(a, bias_keys, s));
 }
 
 extern "C" int flash_dq_sm90(const void* q, const void* k, const void* v,

@@ -39,18 +39,18 @@ and 16-byte aligned take the wgmma kernels (TMA needs those strides and
 alignments), everything else (fp32, whose contract is exact fp32 where
 the tensor cores would give TF32; head dims above 128) the FMA kernels.
 Both routes take the bias (a strided fp32 view: broadcast dims are never
-materialised), the segment words and the dbias output. The wgmma dq and
-dkv kernels take a bias in one of two classes, ``flash_bias_class``'s
-choice: "keys" (it does not vary along queries, as every padding mask)
-is read once per key, "plane" (every other bias, and any with segments
-or dbias) element by element.
+materialised), the segment words and the dbias output. The wgmma
+forward, dq and dkv kernels take a bias in one of two classes,
+``flash_bias_class``'s choice: "keys" (it does not vary along queries, as
+every padding mask) is read once per key, "plane" (every other bias, and
+any with segments or dbias) element by element.
 Each kernel counts its own launches: ``flash_fwd.launches``,
 ``flash_dq.launches`` and ``flash_dkv.launches`` the FMA kernels',
 ``flash_fwd.wgmma.launches``, ``flash_dq.wgmma.launches`` and
 ``flash_dkv.wgmma.launches`` the wgmma kernels'; a launch with a bias
 (its own template instantiation on both routes) counts instead on
-``.bias.launches`` (FMA) or ``.wgmma_bias.launches`` (wgmma; the "plane"
-class in dq and dkv), and a wgmma dq or dkv launch of the "keys" class on
+``.bias.launches`` (FMA) or ``.wgmma_bias.launches`` (wgmma, the "plane"
+class), and a wgmma launch of the "keys" class on
 ``.wgmma_keybias.launches``.
 ``flash_attention_ext`` is the differentiable entry (a
 ``torch.autograd.Function`` saving ``(q, k, v, out, lse)`` like
@@ -475,13 +475,13 @@ def flash_route(dtype: torch.dtype, head_dim: int,
 
 def flash_bias_class(shape4: Sequence[int], strides4: Sequence[int],
                      segments: bool = False, dbias: bool = False) -> str:
-    """The bias class a wgmma dq or dkv launch takes, for a bias viewed as
-    ``[B, Hq, Sq, Sk]`` with element strides ``strides4`` (``_bias4``'s
-    view): ``"keys"`` when it does not vary along queries (query stride 0,
-    or Sq = 1), as ``[B,1,1,Sk]``, ``[1,Hq,1,Sk]``, ``[B,Hq,1,Sk]`` and
-    every padding mask, read once per key; ``"plane"`` otherwise, read
-    element by element. A call with segments or a dbias output takes
-    "plane": the "keys" kernels are built without either."""
+    """The bias class a wgmma forward, dq or dkv launch takes, for a bias
+    viewed as ``[B, Hq, Sq, Sk]`` with element strides ``strides4``
+    (``_bias4``'s view): ``"keys"`` when it does not vary along queries
+    (query stride 0, or Sq = 1), as ``[B,1,1,Sk]``, ``[1,Hq,1,Sk]``,
+    ``[B,Hq,1,Sk]`` and every padding mask, read once per key; ``"plane"``
+    otherwise, read element by element. A call with segments or a dbias
+    output takes "plane": the "keys" kernels are built without either."""
     if len(shape4) != 4 or len(strides4) != 4:
         raise ValueError(f"flash_bias_class: a 4-d view, got shape "
                          f"{tuple(shape4)}, strides {tuple(strides4)}")
@@ -520,8 +520,8 @@ def _drop_args(rate: float, seed: Optional[torch.Tensor], like):
 
 def _entry_args(dims, scale, causal, rate, seed, q, route, mask, *extra):
     """The scalar and mask arguments of a C entry, then ``extra`` (dq's
-    dbias pointer; the wgmma dq's and dkv's bias class); the wgmma entries
-    take no dtype code (bf16 only)."""
+    dbias pointer; the wgmma entries' bias class); the wgmma entries take
+    no dtype code (bf16 only)."""
     dtype = () if route == "wgmma" else (_DTYPE_CODES[q.dtype],)
     return (*dims, float(scale), int(bool(causal)),
             *_drop_args(rate, seed, q), *mask, *extra, *dtype,
@@ -550,27 +550,29 @@ def _launch_on(route: str, wrapper, entry: str, tensors, args,
 
 
 def _fwd_launch(q, k, v, causal, scale, rate, seed, bias=None, seg=None,
-                route=None):
+                route=None, bias_class=None):
     """``route`` defaults to ``flash_route``'s choice; the on-card checks
     also name "fma" for bf16, to hold and time that kernel on the main
-    path's inputs."""
+    path's inputs. ``bias_class`` as in ``_dq_launch``."""
     dims = _check(q, k, v)
     b, sq, _, hq, _, _ = dims
     mask, bias32 = _mask_args(q, dims, bias, seg)
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     route = route or _route(q, k, v, out)
+    keys = _keys_class(route, bias32, seg, bias_class=bias_class)
+    extra = (int(keys),) if route == "wgmma" else ()
     _launch_on(route, flash_fwd, "flash_fwd", (q, k, v, out, lse),
-               _entry_args(dims, scale, causal, rate, seed, q, route, mask),
-               bias)
+               _entry_args(dims, scale, causal, rate, seed, q, route, mask,
+                           *extra), bias, keys)
     return out, lse
 
 
 def _keys_class(route: str, bias32, seg, dbias: bool = False,
                 bias_class: Optional[str] = None) -> bool:
-    """Whether a dq or dkv launch on ``route`` takes the "keys" bias
-    class: ``bias_class`` where given, else ``flash_bias_class``'s choice
-    (the FMA kernels have no classes)."""
+    """Whether a launch on ``route`` takes the "keys" bias class:
+    ``bias_class`` where given, else ``flash_bias_class``'s choice (the
+    FMA kernels have no classes)."""
     if route != "wgmma" or bias32 is None:
         return False
     return (bias_class or flash_bias_class(
@@ -632,8 +634,8 @@ def flash_fwd(q, k, v, causal: bool, scale: float, rate: float = 0.0,
               seg: Optional[Segments] = None):
     """``(out, lse)``: a forward kernel on the card, by ``flash_route``
     (counted in ``flash_fwd.wgmma.launches`` or ``flash_fwd.launches``, or
-    with a bias in ``.wgmma_bias`` / ``.bias``), ``flash_fwd_plain`` on
-    the CPU."""
+    with a bias in ``.wgmma_bias`` / ``.bias``, a "keys" bias on the wgmma
+    route ``.wgmma_keybias``), ``flash_fwd_plain`` on the CPU."""
     return _build.dispatch(flash_fwd_plain, _fwd_launch, q, k, v, causal,
                            scale, rate, seed, bias, seg)
 
@@ -679,7 +681,6 @@ for _wrapper in (flash_fwd, flash_dq, flash_dkv):
     _wrapper.wgmma = KernelCount()
     _wrapper.bias = KernelCount()
     _wrapper.wgmma_bias = KernelCount()
-for _wrapper in (flash_dq, flash_dkv):
     _wrapper.wgmma_keybias = KernelCount()
 
 

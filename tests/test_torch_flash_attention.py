@@ -151,7 +151,7 @@ def test_dropout_seed_comes_from_the_generator():
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
-def test_bias_and_segments_are_not_ported_yet():
+def test_bias_segments_and_float_attn_mask_run_bool_mask_is_refused():
     """Once refused with NotImplementedError, a bias, segment ids and an
     sdpa attn_mask now run: each call matches the plain version it
     reaches, and a bool attn_mask is refused (it is not additive)."""
@@ -425,9 +425,10 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
                                                          d, misaligned,
                                                          entry):
     """Each launch takes its route's C entry with the arity and types of
-    ``_build._SIGNATURES`` (the wgmma entries without a dtype code) and
-    counts on its own kernel's counter; dq follows the route like the
-    forward and dkv."""
+    ``_build._SIGNATURES`` (the wgmma entries without a dtype code, with
+    the bias class before the stream: 0 without a bias) and counts on its
+    own kernel's counter; dq follows the route like the forward and
+    dkv."""
     libs = {n: _fake_library(n)
             for n in ("flash_attention", "flash_attention_sm90")}
     monkeypatch.setattr(_build, "load", libs.__getitem__)
@@ -448,6 +449,10 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
         assert moved == [0, 1, 0, 1, 0, 1]
         assert (sm90, fma) == (["flash_fwd_sm90", "flash_dq_sm90",
                                 "flash_dkv_sm90"], [])
+        for fn, args in libs["flash_attention_sm90"].calls:
+            assert _build._SIGNATURES["flash_attention_sm90"][fn][0][-2] \
+                is ctypes.c_int
+            assert args[-2] == 0
     else:
         assert moved == [1, 0, 1, 0, 1, 0]
         assert (sm90, fma) == ([], ["flash_fwd", "flash_dq", "flash_dkv"])
@@ -457,8 +462,7 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
 
 def _all_counters():
     return [c for w in (tfa.flash_fwd, tfa.flash_dq, tfa.flash_dkv)
-            for c in (w, w.wgmma, w.bias, w.wgmma_bias)] + [
-                tfa.flash_dq.wgmma_keybias, tfa.flash_dkv.wgmma_keybias]
+            for c in (w, w.wgmma, w.bias, w.wgmma_bias, w.wgmma_keybias)]
 
 
 def test_cpu_call_counts_no_launch_on_either_route():
@@ -480,11 +484,11 @@ def test_bias_launches_count_on_their_own_instantiation(monkeypatch, dtype,
                                                         entry):
     """A launch with a bias counts on its route's bias counter
     (``.wgmma_bias`` or ``.bias``) and on no other; on the wgmma route a
-    dq or dkv launch of the "keys" bias class (a [1,1,1,Sk] key bias)
-    counts on ``.wgmma_keybias`` instead, and one of the "plane" class (a
-    [1,1,Sq,Sk] bias, or a key bias with segments) on ``.wgmma_bias``; a
-    launch with segment words and no bias counts on the bias-free
-    counter."""
+    forward, dq or dkv launch of the "keys" bias class (a [1,1,1,Sk] key
+    bias) counts on ``.wgmma_keybias`` instead, and one of the "plane"
+    class (a [1,1,Sq,Sk] bias, or a key bias with segments) on
+    ``.wgmma_bias``; a launch with segment words and no bias counts on the
+    bias-free counter."""
     libs = {n: _fake_library(n)
             for n in ("flash_attention", "flash_attention_sm90")}
     monkeypatch.setattr(_build, "load", libs.__getitem__)
@@ -499,9 +503,7 @@ def test_bias_launches_count_on_their_own_instantiation(monkeypatch, dtype,
     wrappers = (tfa.flash_fwd, tfa.flash_dq, tfa.flash_dkv)
     base = [w.wgmma if entry == "sm90" else w for w in wrappers]
     own = [w.wgmma_bias if entry == "sm90" else w.bias for w in wrappers]
-    keys = own if entry != "sm90" else [tfa.flash_fwd.wgmma_bias,
-                                        tfa.flash_dq.wgmma_keybias,
-                                        tfa.flash_dkv.wgmma_keybias]
+    keys = own if entry != "sm90" else [w.wgmma_keybias for w in wrappers]
     for mask, moves in (((bias, None), keys), ((plane, None), own),
                         ((bias, seg), own), ((None, seg), base)):
         counters = _all_counters()
@@ -869,6 +871,38 @@ def _card_branch_on_the_cpu(monkeypatch, planted):
     return asked
 
 
+def test_forward_bias_class_reaches_the_c_entry_from_the_ext(monkeypatch):
+    """On the card branch (dispatch takes the launch, the library records
+    its calls), ``flash_attention_ext``'s forward hands ``flash_fwd_sm90``
+    the bias class ``flash_bias_class`` picks: 1 ("keys") for BERT's
+    [B,1,1,S] mask, counted on ``flash_fwd.wgmma_keybias``; 0 ("plane")
+    for a bias that varies along queries and for a key mask with
+    segments, counted on ``flash_fwd.wgmma_bias``."""
+    libs = {n: _fake_library(n)
+            for n in ("flash_attention", "flash_attention_sm90")}
+    monkeypatch.setattr(_build, "load", libs.__getitem__)
+    monkeypatch.setattr(_build, "stream", lambda t: ctypes.c_void_p(0))
+    monkeypatch.setattr(_build, "dispatch",
+                        lambda plain, launch, *a: launch(*a))
+    q, k, v = _operands(torch.bfloat16, 64, 4, 2, False)
+    seg = torch.zeros(1, 8, dtype=torch.int32)
+    fwd = tfa.flash_fwd
+    for bias, kw, want, counter in (
+            (torch.zeros(1, 1, 1, 8), {}, 1, fwd.wgmma_keybias),
+            (torch.zeros(1, 1, 8, 8), {}, 0, fwd.wgmma_bias),
+            (torch.zeros(1, 1, 1, 8), {"q_seg": seg, "k_seg": seg}, 0,
+             fwd.wgmma_bias)):
+        calls = libs["flash_attention_sm90"].calls
+        calls.clear()
+        counters = _all_counters()
+        before = [c.launches for c in counters]
+        tfa.flash_attention_ext(q, k, v, bias=bias, **kw)
+        assert [fn for fn, _ in calls] == ["flash_fwd_sm90"]
+        assert calls[0][1][-2] == want
+        moved = [c.launches - b for c, b in zip(counters, before)]
+        assert moved == [int(c is counter) for c in counters]
+
+
 def test_dbias_is_computed_only_when_the_bias_requires_grad(monkeypatch):
     """On the card branch a bias that needs no gradient (BERT's mask)
     asks the dq kernel for no dbias, so a fault planted in the kernel's
@@ -976,8 +1010,9 @@ def test_launches_pass_bias_strides_segment_words_and_dbias(monkeypatch):
     assert calls[2][1][7 + 20] is None and calls[2][1][7 + 17] is None
     assert db.dtype == torch.float32 and tuple(db.shape) == (1, 4, 8, 8)
     assert not db.any()
-    # the bias class: dq and dkv with a [1,1,1,Sk] bias take "keys", with
-    # segments or dbias "plane"
+    # the bias class: a [1,1,1,Sk] bias takes "keys", with segments or
+    # dbias "plane"
+    assert calls[0][1][5 + 20] == 0
     assert calls[1][1][7 + 21] == 0 and calls[2][1][7 + 21] == 1
 
 
@@ -1006,7 +1041,8 @@ def _class_of(shape, b=2, hq=4, sq=16, sk=24, **kw):
 def test_flash_bias_class(shape, sq, kw, want):
     """"keys" for a bias that does not vary along queries (query stride 0
     or Sq = 1), "plane" for every other bias and for any call with
-    segments or a dbias output."""
+    segments or a dbias output. The forward, dq and dkv follow this one
+    rule (the forward never asks for dbias)."""
     if shape == (2, 1, 1, 24) and sq == 1:
         b4 = tfa._bias4(torch.zeros(shape), 2, 4, 1, 24)
         assert b4.stride()[2] != 0
@@ -1037,28 +1073,73 @@ def _cu_index_fn(name):
     return eval("lambda %s: %s" % (", ".join(args), expr))
 
 
+def _keys_reads(kernel):
+    """The "keys" read pattern of the forward's or dq's source: (tile of
+    keys BK, stages, the slot function, the value a key past Sk gets, the
+    consumer's byte offset per column group l & 3 and per float4 m),
+    parsed from its tile struct and its kernel body; the consumer's loads
+    must cover its BK / 16 float4 once each."""
+    src = _sm90_source()
+    tile = {"fwd": "FwdTile", "dq": "DqTile"}[kernel]
+    m = re.search(r"struct " + tile + r" \{\s*static constexpr int BQ = \d+, "
+                  r"BK = (\d+), STAGES = (\d+)", src)
+    assert m, tile
+    bk, stages = int(m.group(1)), int(m.group(2))
+    body = src.split(f"{kernel}_sm90_kernel(")[1].split("_sm90_kernel(")[0]
+    m = re.search(r"kb_addr =[^;]*smem_u32\(kbias \+ s \* BK\) \+ (\d+) \* "
+                  r"\(l & 3\)[^;]*;", body)
+    assert m, kernel
+    group_off = int(m.group(1))
+    loops = re.findall(r"for \(int (\w+) = ([^;]+); \1 < ([^;]+); \+\+\1\) "
+                       r"kb4\[\1\] = lds_f4\(kb_addr \+ (\d+) \* \1\);", body)
+    assert loops, kernel
+    read = []
+    for _, lo, hi, _ in loops:                # C's / on positive ints
+        assert all(re.fullmatch(r"[\w\s/]+", e) for e in (lo, hi))
+        read += range(*(eval(e.replace("/", "//"), {"BK": bk})
+                        for e in (lo, hi)))
+    assert sorted(read) == list(range(bk // 16))
+    assert len({off for *_, off in loops}) == 1
+    slot_fn = re.search(r"kbias\[s \* BK \+ (\w+)\(", body)
+    assert slot_fn, kernel
+    pad = (-np.inf if re.search(r"key < dm\.Sk \? key_bias\([^)]*\) : "
+                                r"-INFINITY;", body) else 0.0)
+    return (bk, stages, _cu_index_fn(slot_fn.group(1)), pad, group_off,
+            int(loops[0][3]))
+
+
+@pytest.mark.parametrize("kernel", ["dq", "fwd"])
 @pytest.mark.parametrize("sk", [512, 333, 130])
 @pytest.mark.parametrize("shape", ["B11S", "1H1S"])
-def test_keys_class_read_pattern_gives_each_key_its_bias(sk, shape):
+def test_keys_class_read_pattern_gives_each_key_its_bias(sk, shape, kernel):
     """The "keys" kernels' reads, emulated over the flat fp32 buffer the
-    wrapper passes (offsets b*sb + h*sh + key*sk): in dq the producer warp
-    fills each of the 4 stages with 64 key biases (0 past Sk), lane j and
-    j + 32, key j at keys_slot(j), and a consumer thread (w, l) reads the
-    16 floats from 16 (l & 3) as 4 float4, element e of column pair i at
-    4 (i >> 1) + 2 (i & 1) + e, for its columns frag_col(l, i, e); in dkv
-    each thread holds the biases of its keys frag_row(w, l, 0 and 2) of
-    its warpgroup. Every value read equals _bias4(...)[b, h, 0, key], and
-    0 past Sk; the slots of a tile are a permutation. keys_slot, frag_col,
-    frag_row and the consumer's byte offset per column group are read from
-    the CUDA source, so a change to the kernel's layout fails here."""
-    _keys_slot = _cu_index_fn("keys_slot")
+    wrapper passes (offsets b*sb + h*sh + key*sk): in dq (the forward) the
+    producer warp fills each of the 4 (2) stages with 64 (128) key biases
+    (0, in the forward -inf, past Sk), key j = lane + 32 rr at slot(j),
+    and a consumer thread
+    (w, l) reads its 16 (32) floats as 4 (8) float4 at the byte offset
+    the source gives per column group l & 3 and per float4 m, element e
+    of column pair i at float4 i >> 1, element 2 (i & 1) + e, for its
+    columns frag_col(l, i, e); in dkv each thread holds the biases of its
+    keys frag_row(w, l, 0 and 2) of its warpgroup. Every value read
+    equals _bias4(...)[b, h, 0, key], and the pad past Sk; the slots of a
+    tile
+    are a permutation; the forward's four column groups read 64
+    neighbouring bytes per float4 (no bank conflict). The slot function,
+    frag_col, frag_row, the tile struct and the consumer's byte offsets
+    are read from the CUDA source, so a change to a kernel's layout fails
+    here."""
+    bk, stages, slot, pad, group_off, m_off = _keys_reads(kernel)
     _frag_col = _cu_index_fn("frag_col")
     _frag_row = _cu_index_fn("frag_row")
-    m = re.search(r"smem_u32\(kbias \+ s \* BK\) \+ (\d+) \* \(l & 3\);",
-                  _sm90_source())
-    assert m and int(m.group(1)) == 16 * 4     # 16 floats per column group
-    assert sorted(_keys_slot(j) for j in range(64)) == list(range(64))
-    b, hq, sq, bk, stages = 2, 4, 7, 64, 4
+    assert (bk, stages, pad) == {"dq": (64, 4, 0.0),
+                                 "fwd": (128, 2, -np.inf)}[kernel]
+    assert sorted(slot(j) for j in range(bk)) == list(range(bk))
+    if kernel == "fwd":
+        for m in range(bk // 16):
+            assert sorted(group_off * g + m_off * m for g in range(4)) == \
+                list(range(64 * m, 64 * m + 64, 16))
+    b, hq, sq = 2, 4, 7
     rng = np.random.RandomState(sk)
     bshape = (b, 1, 1, sk) if shape == "B11S" else (1, hq, 1, sk)
     bias = torch.from_numpy(rng.standard_normal(bshape).astype(np.float32))
@@ -1067,30 +1148,34 @@ def test_keys_class_read_pattern_gives_each_key_its_bias(sk, shape):
     flat = bias.reshape(-1)
     sb, sh, _, skk = b4.stride()
 
-    def key_bias(bi, h, key):
-        return float(flat[bi * sb + h * sh + key * skk]) if key < sk else 0.0
+    def key_bias(bi, h, key, past=0.0):
+        return float(flat[bi * sb + h * sh + key * skk]) if key < sk else past
 
-    want = lambda bi, h, key: (float(b4[bi, h, 0, key])  # noqa: E731
-                               if key < sk else 0.0)
+    want = lambda bi, h, key, past=0.0: (  # noqa: E731
+        float(b4[bi, h, 0, key]) if key < sk else past)
     nk = -(-sk // bk)
     for bi in range(b):
         for h in range(hq):
             stage = np.full((stages, bk), np.nan, np.float32)
-            for kt in range(nk):                       # dq: producer, then
+            for kt in range(nk):                       # producer, then
                 s = kt % stages                        # both consumers
                 for lane in range(32):
                     for rr in range(bk // 32):
                         j = lane + 32 * rr
-                        stage[s, _keys_slot(j)] = key_bias(bi, h, kt * bk + j)
+                        stage[s, slot(j)] = key_bias(bi, h, kt * bk + j, pad)
                 for w in range(4):
                     for lane in range(32):
-                        row = stage[s, 16 * (lane & 3):16 * (lane & 3) + 16]
-                        f4 = row.reshape(4, 4)            # the 4 float4
+                        f4 = [stage[s, o // 4:o // 4 + 4] for o in (
+                            group_off * (lane & 3) + m_off * m
+                            for m in range(bk // 16))]
                         for i in range(bk // 8):
                             for e in range(2):
-                                got = f4[i >> 1, 2 * (i & 1) + e]
+                                got = f4[i >> 1][2 * (i & 1) + e]
                                 assert got == np.float32(want(
-                                    bi, h, kt * bk + _frag_col(lane, i, e)))
+                                    bi, h, kt * bk + _frag_col(lane, i, e),
+                                    pad))
+            if kernel != "dq":
+                continue
             for kt0 in range(0, nk * bk, 128):         # dkv: per CTA of 128
                 for cw in range(2):                    # keys, two consumers
                     for w in range(4):
