@@ -1,7 +1,8 @@
 """On-card smoke test of the PyTorch/CUDA port (paddle_tpu_torch).
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
-                          [--phases kernels,serve,train,bert]
+                          [--phases kernels,serve,train,bert,llama]
+                          [--optimizer-ab]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
 Phases, each fatal on failure:
@@ -14,9 +15,11 @@ Phases, each fatal on failure:
    its SASS's HGMMAs, wgmma waits and global loads.
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (RMSNorm forward, and its backward from the
-   kernel's statistic; LayerNorm at GPT-2's and BERT-large's widths;
+   kernel's statistic, at decode's rows and the Llama train cell's
+   [16384, 2048]; LayerNorm at GPT-2's and BERT-large's widths;
    flash-attention forward, dq and dkv on both routes, wgmma and FMA, at
-   GPT-2's and Llama-2 7B's training shapes, GQA, padded lengths, rows
+   GPT-2's, Llama-2 7B's and the Llama train cell's (B8 S2048 H16 D128)
+   training shapes, GQA, padded lengths, rows
    that see no key, a single query, head dims of 32, 96 and 160, and
    dropout (also at D = 128), whose keep-mask must match exactly in fp32
    and bf16; with an additive bias: BERT-large's key mask, a full bias
@@ -94,6 +97,36 @@ Phases, each fatal on failure:
       memory and MFU (6 x matmul params + 12 L S H per token over 989
       TFLOP/s). With ``--profile``, one step goes under
       ``torch.profiler``.
+8. llama: ``create_train_step`` trains ``LlamaForCausalLM`` with the
+   blockwise LM-head CE (``ops/fused_ce.py``, plain PyTorch) and the
+   multi-tensor AdamW step, whose two steps on the card first must equal
+   the per-parameter loop's bit for bit (bf16 and fp32 parameters and
+   moments).
+   a. oracle: the cell's widths (hidden 2048, 16 heads of D = 128,
+      intermediate 5504, vocab 32000) with 2 layers, fp32, one step of
+      batch 1 x 1024 on the card (FMA flash kernels, RMSNorm kernel) and
+      on the CPU (plain versions) from the same weights: loss within
+      rtol 1e-4, every gradient within 1e-3 of its largest magnitude;
+      2/2/2 FMA flash launches, 5 RMSNorm, no CE kernel. Then the step's
+      loss and gradients on the card again with ``use_recompute`` under
+      "full" and "dots_saveable": equal to the run without recompute bit
+      for bit (a tensor that already differs between two runs without
+      recompute is named and held to that difference), with 4 flash
+      forwards and 9 RMSNorms (every layer replayed).
+   b. full (cell ``llama-0.7b-bf16-train-b8``): bench_configs.py's
+      single-chip Llama config (12 layers, 2048 wide, 16 heads, 5504,
+      vocab 32000, sequence 2048, dropout 0, blockwise CE), batch 8, no
+      recompute, bf16 parameters and bf16 AdamW moments, AdamW(3e-4,
+      weight decay 0.01 off norms), 20 steps on one batch: the loss must
+      fall by at least 0.5 and every step must launch exactly 12 wgmma
+      flash forwards, dq and dkv (bias-free, D = 128), 25 RMSNorms and
+      nothing else. Reports ms/step, tokens/s, peak memory and MFU
+      (bench_configs.py's ``_mfu_llama`` count over 989 TFLOP/s); with
+      ``--profile`` one step goes under ``torch.profiler``.
+
+``--optimizer-ab`` adds GPT-2's and BERT's train cells with the flag
+``use_fused_optimizer`` on and off in turns (ms/step, the profiled
+``Optimizer.step`` span and idle share).
 
 The line before the last holds the kernel table as JSON; the last line
 is ``{"ok": true, "device": {...}}``, or ``{"ok": "partial", ...}`` when
@@ -226,7 +259,8 @@ def phase_kernels(norms, gen):
     # 32..512 of the served prompts, at N = 4096; then a ragged row
     # count and a width that takes the scalar path
     shapes = [(r, 4096) for r in (8, 32, 64, 128, 256, 512)]
-    for rows, n in shapes + [(13, 4096), (3, 1000)]:
+    # the Llama train cell's [B*S, H] = [16384, 2048] (bf16 there)
+    for rows, n in shapes + [(16384, 2048), (13, 4096), (3, 1000)]:
         for dtype in (torch.float32, torch.bfloat16):
             for with_w in (True, False):
                 x = torch.randn(rows, n, device=dev, generator=gen,
@@ -245,7 +279,7 @@ def phase_kernels(norms, gen):
                                                     RMS_RTOL["inv"])
                 if dtype == torch.float32:
                     worst = max(worst, err)
-                if with_w and rows in (8, 13, 512):
+                if with_w and rows in (8, 13, 512, 16384):
                     g = torch.randn(rows, n, device=dev, generator=gen)
                     (dx, dw), (dxp, dwp) = _rms_backward(norms, x, w, g)
                     _, used[tag + " dx"] = check_close(
@@ -253,9 +287,8 @@ def phase_kernels(norms, gen):
                     _, used[tag + " dw"] = check_close(
                         "dw", dw, dwp, RMS_RTOL["bwd"][dtype])
     timings = []
-    for rows in (8, 512):
+    for rows, n in ((8, 4096), (512, 4096), (16384, 2048)):
         for dtype in (torch.float32, torch.bfloat16):
-            n = 4096
             x = torch.randn(rows, n, device=dev, generator=gen).to(dtype)
             w = (torch.randn(n, device=dev, generator=gen) + 1.0).to(dtype)
             lib_fn = torch.nn.functional.rms_norm
@@ -488,6 +521,8 @@ FLASH_CASES = [
     ("gpt2-train", 8, 1024, 1024, 12, 12, 64, torch.bfloat16, True, 0.0),
     ("llama7b", 1, 2048, 2048, 32, 32, 128, torch.bfloat16, True, 0.0,
      {"bwd": "exact"}),
+    ("llama-0.7b-train", 8, 2048, 2048, 16, 16, 128, torch.bfloat16, True,
+     0.0, {"bwd": "exact"}),
     ("gqa-32/8", 1, 1024, 1024, 32, 8, 128, torch.bfloat16, True, 0.0),
     ("padded-200/333", 2, 200, 333, 4, 4, 64, torch.float32, True, 0.0),
     ("padded-non-causal", 2, 200, 333, 4, 2, 96, torch.float32, False, 0.0),
@@ -845,7 +880,8 @@ FLASH_KINDS = ("fwd", "fwd_wgmma", "dq", "dq_wgmma", "dkv", "dkv_wgmma")
 WGMMA_KINDS = ("fwd_wgmma", "dq_wgmma", "dkv_wgmma")
 FMA_KINDS = ("fwd", "dq", "dkv")
 # the timed shapes: GPT-2's and Llama-2 7B's training attention on both
-# routes; BERT-large's at its dropout 0.1 (the "keys" instantiations its
+# routes; the Llama train cell's (B8 S2048 H16 D128) on the wgmma route;
+# BERT-large's at its dropout 0.1 (the "keys" instantiations its
 # train cell launches) and without dropout on the wgmma kernels, each
 # beside the bias-free kernels at the same shape and dropout (sdpa then
 # without the mask), and the "plane" bias class on the same mask
@@ -853,6 +889,7 @@ FMA_KINDS = ("fwd", "dq", "dkv")
 # kernels at the BERT oracle's fp32 shape. (key, case, kinds[, bias_as])
 FLASH_TIMED = (("gpt2", "gpt2-train", FLASH_KINDS),
                ("llama7b", "llama7b", FLASH_KINDS),
+               ("llama07b_train", "llama-0.7b-train", WGMMA_KINDS),
                ("bert", "bert-keymask-dropout", WGMMA_KINDS),
                ("bert_no_dropout", "bert-large-keymask", WGMMA_KINDS),
                ("bert_nobias", "bert-keymask-dropout", WGMMA_KINDS, "none"),
@@ -1293,12 +1330,13 @@ def phase_profile(cell, model, prompts, out_dir, device="cuda"):
     return out
 
 
-PHASES = ("kernels", "serve", "train", "bert")
+PHASES = ("kernels", "serve", "train", "bert", "llama")
 TRAIN_STEPS = 20
 TRAIN_LR = 3e-4
 BERT_LR = 1e-4
 BERT_CELL = "bert-large-bf16-pretrain-b16"
 BERT_MASK_ID = 103                      # [MASK] in BERT's vocabulary
+LLAMA_CELL = "llama-0.7b-bf16-train-b8"
 
 
 def _wrappers():
@@ -1329,21 +1367,25 @@ def _reset_counts():
 
 def _expected_counts(layers: int, steps: int, route: str,
                      norms: int = None, ces: int = 1,
-                     bias: bool = False) -> dict:
+                     bias: bool = False, norm: str = "layer_norm",
+                     fwds: int = None) -> dict:
     """Per train step: one flash forward, one dq and one dkv per layer on
     the kernels of ``route`` ("wgmma" for bf16, "fma" for fp32), their
     bias instantiations with ``bias`` (a padding mask: on the wgmma route
-    the "keys" class), and none of the others; ``norms`` LayerNorms
-    (GPT-2: two per layer and the final one); ``ces`` CE forwards and as
-    many CE backwards (GPT-2: one)."""
+    the "keys" class), and none of the others; ``norms`` launches of the
+    ``norm`` kernel ("layer_norm" or "rms_norm"; by default two per layer
+    and the final one); ``ces`` CE forwards and as many CE backwards
+    (GPT-2: one); ``fwds`` flash forwards per step when a replay adds to
+    the layers' own."""
     norms = 2 * layers + 1 if norms is None else norms
+    fwds = layers if fwds is None else fwds
     sfx = _sfx(route) + (("_keybias" if route == "wgmma" else "_bias")
                          if bias else "")
     out = dict.fromkeys(_wrappers(), 0)
-    out.update({f"flash_fwd{sfx}": layers * steps,
+    out.update({f"flash_fwd{sfx}": fwds * steps,
                 f"flash_dq{sfx}": layers * steps,
                 f"flash_dkv{sfx}": layers * steps,
-                "layer_norm": norms * steps,
+                norm: norms * steps,
                 "softmax_xent_fwd": ces * steps,
                 "softmax_xent_bwd": ces * steps})
     return out
@@ -1415,9 +1457,9 @@ def _hold_oracle_grads(cpu, gpu):
             raise AssertionError(f"oracle grad {n}: max diff {rel:.3e} of "
                                  f"its max-abs > 1e-3")
     log(f"  oracle: {len(gpu_params) - len(vanishing)} gradients agree, "
-        f"worst max diff {worst:.3e} of the tensor's max-abs (bound 1e-3); "
-        f"k_proj biases zero up to "
-        f"{max(vanishing.values()):.2e} of the largest gradient")
+        f"worst max diff {worst:.3e} of the tensor's max-abs (bound 1e-3)"
+        + (f"; k_proj biases zero up to {max(vanishing.values()):.2e} of "
+           f"the largest gradient" if vanishing else ""))
     return worst, vanishing
 
 
@@ -1431,6 +1473,7 @@ def _train_kernel_class(name: str) -> str:
                      ("softmax_xent_fwd_kernel", "CE fwd kernel"),
                      ("softmax_xent_bwd_kernel", "CE bwd kernel"),
                      ("layer_norm_fwd_kernel", "layer_norm kernel"),
+                     ("rms_norm_fwd_kernel", "rms_norm kernel"),
                      ("fwd_kernel<", "flash fwd kernel"),
                      ("dq_kernel", "flash dq kernel"),
                      ("dkv_kernel", "flash dkv kernel")):
@@ -1764,6 +1807,335 @@ def phase_bert_full(seed, card, profile, out_dir):
     return res
 
 
+def _llama_cfg(**kw):
+    """bench_configs.py's single-chip Llama train config (the reference's
+    0.7B cell: hidden 2048, 16 heads so D = 128, 16 KV heads,
+    intermediate 5504, vocab 32000, 12 layers, 2048 positions, dropout 0,
+    the blockwise LM-head CE), with ``kw`` changed."""
+    from paddle_tpu_torch.models import LlamaConfig
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=2048,
+                      intermediate_size=5504, num_layers=12, num_heads=16,
+                      num_kv_heads=16, max_position_embeddings=2048,
+                      dropout=0.0, lm_ce="blockwise")
+    for k, v in kw.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def _mfu_llama_flops(cfg, seq: int) -> float:
+    """bench_configs.py ``_mfu_llama``'s FLOPs per token: 6 x the matmul
+    parameters (attention with GQA's K/V share, the MLP, the LM head) +
+    3 L S H for causal attention."""
+    h, L, inter, V = (cfg.hidden_size, cfg.num_layers,
+                      cfg.intermediate_size, cfg.vocab_size)
+    kv = cfg.num_kv_heads / cfg.num_heads
+    return 6 * (L * ((2 + 2 * kv) * h * h + 3 * h * inter) + V * h) \
+        + 3 * L * seq * h
+
+
+def check_fused_adamw_on_card(seed):
+    """Two AdamW steps with ``use_fused_optimizer`` on (torch._foreach_*)
+    and two with it off (the per-parameter loop), from the same
+    parameters and gradients on the card: bf16 and fp32 parameters, bf16
+    and fp32 moments, decay on and off; every parameter and moment must
+    come out the same bit for bit. Returns the count of tensors
+    compared."""
+    from paddle_tpu_torch import get_flags, set_flags
+    from paddle_tpu_torch.optimizer import AdamW
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = [(2048, 5504), (5504, 2048), (2048,), (32000, 2048), (7, 3)]
+    compared = 0
+    prev = get_flags("use_fused_optimizer")
+    try:
+        for pdtype in (torch.bfloat16, torch.float32):
+            for mdtype in (torch.bfloat16, None):
+                data = [torch.randn(s, device="cuda", generator=gen)
+                        .to(pdtype) for s in shapes]
+                grads = [[torch.randn(s, device="cuda", generator=gen)
+                          .to(pdtype) for s in shapes] for _ in range(2)]
+                out = []
+                for fused in (True, False):
+                    set_flags({"use_fused_optimizer": fused})
+                    ps = [torch.nn.Parameter(d.clone()) for d in data]
+                    opt = AdamW(TRAIN_LR, parameters=ps, weight_decay=0.01,
+                                moment_dtype=mdtype)
+                    mask = {id(p): i % 2 == 0 for i, p in enumerate(ps)}
+                    for gs in grads:
+                        for p, g in zip(ps, gs):
+                            p.grad = g.clone()
+                        opt.step(lr=TRAIN_LR, wd_mask=mask)
+                    out.append([t for p in ps for t in (
+                        p.detach(), opt.state[p]["moment1"],
+                        opt.state[p]["moment2"])])
+                torch.cuda.synchronize()
+                for a, b in zip(*out):
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"fused AdamW ({pdtype}, moments {mdtype}) "
+                            f"differs from the loop at "
+                            f"{int((a != b).sum())} of {a.numel()}")
+                    compared += 1
+    finally:
+        set_flags(prev)
+    log(f"  fused AdamW step: {compared} parameters and moments equal the "
+        f"per-parameter loop's bit for bit after two steps (bf16/fp32 "
+        f"parameters, bf16/fp32 moments, decay on and off)")
+    return compared
+
+
+def _grads_run(model, x, y):
+    """Loss and every gradient of one train-mode loss + backward."""
+    model.zero_grad(set_to_none=True)
+    model.train()
+    loss = model.loss(x, y)
+    loss.backward()
+    return loss.detach().clone(), {n: p.grad.detach().clone()
+                                   for n, p in model.named_parameters()}
+
+
+def _hold_recompute(gpu, x, y, layers):
+    """The oracle's step on the card again (loss and gradients, no
+    optimizer step), twice without recompute, then with
+    ``use_recompute`` under each of "full" and "dots_saveable": loss and
+    gradients must equal the run without recompute bit for bit, except
+    where the two runs without it already differ (named, and held to
+    that difference); each run with recompute must replay every layer's
+    flash forward and RMSNorms (2L flash forwards, 4L + 1 RMSNorms)."""
+    base = _grads_run(gpu, x, y)
+    again = _grads_run(gpu, x, y)
+    noisy = {}
+    if not torch.equal(base[0], again[0]):
+        noisy["loss"] = float((base[0] - again[0]).abs())
+    for n in base[1]:
+        if not torch.equal(base[1][n], again[1][n]):
+            noisy[n] = float((base[1][n] - again[1][n]).abs().max())
+    log(f"  recompute: the step run twice without recompute differs in "
+        f"{noisy or 'nothing'}")
+    res = {"run_to_run": noisy}
+    for policy in ("full", "dots_saveable"):
+        gpu.cfg.use_recompute, gpu.cfg.recompute_policy = True, policy
+        try:
+            _reset_counts()
+            got = _grads_run(gpu, x, y)
+            counts = _counts()
+        finally:
+            gpu.cfg.use_recompute = False
+        expect = _expected_counts(layers, 1, "fma", norms=4 * layers + 1,
+                                  ces=0, norm="rms_norm", fwds=2 * layers)
+        if counts != expect:
+            raise AssertionError(f"recompute {policy}: launches {counts}, "
+                                 f"expected {expect}")
+        diffs = {}
+        for n, ref, g in [("loss", base[0], got[0])] + [
+                (n, base[1][n], got[1][n]) for n in base[1]]:
+            d = float((g - ref).abs().max())
+            if n in noisy:
+                if not d <= noisy[n]:
+                    raise AssertionError(f"recompute {policy}: {n} differs "
+                                         f"by {d:.3e}, beyond the "
+                                         f"run-to-run {noisy[n]:.3e}")
+                diffs[n] = d
+            elif not torch.equal(g, ref):
+                raise AssertionError(f"recompute {policy}: {n} differs at "
+                                     f"{int((g != ref).sum())} entries "
+                                     f"(max {d:.3e})")
+        log(f"  recompute {policy}: loss and {len(base[1])} gradients equal "
+            f"the run without recompute bit for bit"
+            + (f" (run-to-run tensors within their spread: {diffs})"
+               if diffs else "")
+            + f"; {counts['flash_fwd']} flash forwards, "
+            f"{counts['rms_norm']} RMSNorms")
+        res[policy] = {"launches": counts, "within_spread": diffs}
+    return res
+
+
+def phase_llama_oracle(seed):
+    """One train step of the Llama cell's widths with 2 layers, fp32,
+    batch 1 x 1024, on the card (FMA flash kernels at D = 128, RMSNorm
+    kernel) and on the CPU (plain versions) from the same weights; then
+    the recompute check on the card."""
+    from paddle_tpu_torch.core.random import make_generator
+    from paddle_tpu_torch.models import LlamaForCausalLM, create_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = _llama_cfg(num_layers=2)
+    cpu = LlamaForCausalLM(cfg, device="cpu",
+                           generator=make_generator(seed, "cpu"))
+    gpu = LlamaForCausalLM(cfg, device="cuda",
+                           generator=make_generator(seed, "cuda"))
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (1, 1025))
+    x, y = ids[:, :-1], ids[:, 1:]
+    steps = {m: create_train_step(m, AdamW(TRAIN_LR,
+                                           parameters=m.parameters(),
+                                           weight_decay=0.01))
+             for m in (cpu, gpu)}
+    _reset_counts()
+    loss_gpu = float(steps[gpu](x, y, TRAIN_LR))
+    counts = _counts()
+    t0 = time.perf_counter()
+    loss_cpu = float(steps[cpu](x, y, TRAIN_LR))
+    log(f"  oracle: loss card {loss_gpu:.6f}, CPU plain {loss_cpu:.6f} "
+        f"({time.perf_counter() - t0:.1f} s on the CPU); launches {counts}")
+    expect = _expected_counts(cfg.num_layers, 1, "fma", ces=0,
+                              norm="rms_norm")
+    if counts != expect:
+        raise AssertionError(f"oracle launches {counts}, expected {expect}")
+    if not abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu):
+        raise AssertionError("oracle loss differs beyond rtol 1e-4")
+    worst, _ = _hold_oracle_grads(cpu, gpu)
+    del cpu, steps
+    xg, yg = (torch.as_tensor(a, device="cuda") for a in (x, y))
+    rec = _hold_recompute(gpu, xg, yg, cfg.num_layers)
+    return {"loss_card": loss_gpu, "loss_cpu": loss_cpu,
+            "worst_grad_rel": worst, "launches": counts, "recompute": rec}
+
+
+def phase_llama_full(seed, card, profile, out_dir):
+    """The 0.7B Llama train cell: bench_configs.py's single-chip config
+    at batch 8 x 2048, bf16 parameters and AdamW moments, 20 steps on
+    one batch."""
+    from paddle_tpu_torch.core.random import make_generator
+    from paddle_tpu_torch.models import (LlamaForCausalLM, create_train_step,
+                                         write_back)
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = _llama_cfg()
+    batch, seq = 8, cfg.max_position_embeddings
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, device="cuda",
+                             generator=make_generator(seed, "cuda"))
+    write_back(model, {k: v.detach().to(torch.bfloat16)
+                       for k, v in model.named_parameters()})
+    nparams = sum(p.numel() for p in model.parameters())
+    # the reference's second candidate (bench_configs.py): batch 8 with
+    # bf16 moment storage; weight decay off the norms (trainer._wd_mask)
+    opt = AdamW(TRAIN_LR, parameters=model.parameters(), weight_decay=0.01,
+                moment_dtype=torch.bfloat16)
+    step = create_train_step(model, opt)
+    rng = np.random.RandomState(seed)
+    ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq + 1)),
+                          device="cuda")
+    x, y = ids[:, :-1], ids[:, 1:]
+    _reset_counts()                                  # counted run starts
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        losses.append(step(x, y, TRAIN_LR))
+        if i == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = _counts()                               # counted run ends
+    losses = [float(v) for v in losses]
+    peak = torch.cuda.max_memory_allocated()
+    ms_step = (t2 - t1) / (TRAIN_STEPS - 1) * 1e3
+    tokens_s = batch * seq / (ms_step / 1e3)
+    flops_per_tok = _mfu_llama_flops(cfg, seq)
+    res = {"params": nparams, "batch": batch, "seq": seq,
+           "losses": losses, "first_step_s": t1 - t0, "ms_per_step": ms_step,
+           "tokens_per_s": tokens_s, "flops_per_token": flops_per_tok,
+           "mfu": tokens_s * flops_per_tok / BF16_FLOPS,
+           "moment_dtype": str(opt.state[model.lm_head.weight]["moment1"]
+                               .dtype)[6:],
+           "peak_mem_bytes": peak, "launches": counts, "card": card}
+    log(f"  full: {nparams} params bf16, moments {res['moment_dtype']}, "
+        f"batch {batch} x {seq}, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"over {TRAIN_STEPS} steps")
+    log(f"  full: {ms_step:.2f} ms/step, {tokens_s:.0f} tokens/s, MFU "
+        f"{res['mfu']:.4f} ({flops_per_tok / 1e9:.3f} GFLOP per token vs "
+        f"989 TFLOP/s), peak memory {peak / 2**30:.2f} GiB, first step "
+        f"{t1 - t0:.2f} s [{card}]")
+    log(f"  full: launches {counts}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[0] - losses[-1] >= 0.5:
+        raise AssertionError(f"loss fell by {losses[0] - losses[-1]:.4f} "
+                             f"< 0.5 over {TRAIN_STEPS} steps")
+    expect = _expected_counts(cfg.num_layers, TRAIN_STEPS, "wgmma", ces=0,
+                              norm="rms_norm")
+    if counts != expect:
+        raise AssertionError(f"launches {counts}, expected {expect}")
+    if profile:
+        res["profile"] = phase_train_profile(step, x, y, out_dir,
+                                             name="llama_train_profile.txt")
+    return res
+
+
+def phase_optimizer_ab(seed, out_dir):
+    """GPT-2's and BERT's train cells with ``use_fused_optimizer`` on and
+    off in turns (on, off, on, off), each turn on a fresh AdamW over the
+    same model: one warm-up step, ``TRAIN_STEPS`` timed steps (ms/step)
+    and one profiled step (the ``Optimizer.step`` range and the device's
+    idle share)."""
+    from paddle_tpu_torch import get_flags, set_flags
+    from paddle_tpu_torch.core.random import make_generator
+    from paddle_tpu_torch.models import (BertForPretraining, GPTForCausalLM,
+                                         bert_large, create_train_step,
+                                         gpt2_small, write_back)
+    from paddle_tpu_torch.optimizer import AdamW
+    out = {}
+    prev = get_flags("use_fused_optimizer")
+    for cell in ("gpt2s-bf16-train-b8", BERT_CELL):
+        rng = np.random.RandomState(seed)
+        if cell == BERT_CELL:
+            cfg, lr = bert_large(), BERT_LR
+            model = BertForPretraining(cfg, device="cuda",
+                                       generator=make_generator(seed, "cuda"))
+            seq = cfg.max_position_embeddings
+            ids, labels, tt, mask, nsp = _bert_batch(
+                cfg.vocab_size, rng.randint(128, seq + 1, 16), seq, rng,
+                "cuda")
+            loss_fn = _bert_loss_fn(tt, mask, nsp)
+        else:
+            cfg, lr = gpt2_small(), TRAIN_LR
+            cfg.dropout = 0.0
+            model = GPTForCausalLM(cfg, device="cuda",
+                                   generator=make_generator(seed, "cuda"))
+            seq = cfg.max_position_embeddings
+            t = torch.as_tensor(rng.randint(0, cfg.vocab_size, (8, seq + 1)),
+                                device="cuda")
+            ids, labels, loss_fn = t[:, :-1], t[:, 1:], None
+        write_back(model, {k: v.detach().to(torch.bfloat16)
+                           for k, v in model.named_parameters()})
+        turns = []
+        try:
+            for fused in (True, False, True, False):
+                set_flags({"use_fused_optimizer": fused})
+                opt = AdamW(lr, parameters=model.parameters(),
+                            weight_decay=0.01)
+                step = create_train_step(model, opt, loss_fn)
+                step(ids, labels, lr)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(TRAIN_STEPS):
+                    step(ids, labels, lr)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+                prof = phase_train_profile(
+                    step, ids, labels, out_dir, lr,
+                    f"optimizer_ab-{cell}-{len(turns)}.txt")
+                span = sum(v for k, v in prof["ranges_us"].items()
+                           if k.startswith("Optimizer.step"))
+                turns.append({"fused": fused, "ms_per_step": ms,
+                              "optimizer_step_span_ms": span / 1e3,
+                              "profiled_wall_ms": prof["wall_us"] / 1e3,
+                              "busy_ms": prof["busy_us"] / 1e3,
+                              "idle_share": prof["idle_share"]})
+                log(f"  optimizer A/B {cell} fused={fused}: {ms:.2f} "
+                    f"ms/step; profiled step: Optimizer.step spans "
+                    f"{span / 1e3:.2f} ms of {prof['wall_us'] / 1e3:.2f} "
+                    f"ms wall, idle {prof['idle_share']:.3f}")
+                del opt, step
+        finally:
+            set_flags(prev)
+        out[cell] = turns
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
 def _short_kernel(mangled: str) -> str:
     """``dq_sm90_kernel<64,0,1,0>`` for a mangled wgmma kernel name: its
     template arguments (the head dim it is built for, then dropout, bias
@@ -1832,8 +2204,11 @@ def main(argv=None) -> int:
                     help="also profile decode steps and one train step")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of kernels,serve,train,bert"
-                         " (default: all); a subset is a development aid and "
-                         "ends with \"ok\": \"partial\", not true")
+                         ",llama (default: all); a subset is a development "
+                         "aid and ends with \"ok\": \"partial\", not true")
+    ap.add_argument("--optimizer-ab", action="store_true",
+                    help="also time GPT-2's and BERT's train cells with "
+                         "use_fused_optimizer on and off in turns")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not phases <= set(PHASES):
@@ -1951,6 +2326,30 @@ def main(argv=None) -> int:
         res["oracle"] = oracle
         report.setdefault("train", {})[BERT_CELL] = res
         by_path[BERT_CELL] = res["launches"]
+        torch.cuda.empty_cache()
+
+    if "llama" in phases:
+        log(f"llama {LLAMA_CELL}:")
+        t0 = time.perf_counter()
+        fused_checked = check_fused_adamw_on_card(args.seed)
+        oracle = phase_llama_oracle(args.seed)
+        by_path["llama-fp32-train-oracle"] = oracle["launches"]
+        for policy in ("full", "dots_saveable"):
+            by_path[f"llama-fp32-recompute-{policy}"] = \
+                oracle["recompute"][policy]["launches"]
+        torch.cuda.empty_cache()
+        res = phase_llama_full(args.seed, card, args.profile, args.out)
+        res["oracle"] = oracle
+        res["fused_adamw_tensors_checked"] = fused_checked
+        res["phase_seconds"] = time.perf_counter() - t0
+        log(f"  phase llama: {res['phase_seconds']:.1f} s")
+        report.setdefault("train", {})[LLAMA_CELL] = res
+        by_path[LLAMA_CELL] = res["launches"]
+        torch.cuda.empty_cache()
+
+    if args.optimizer_ab:
+        log("optimizer A/B (use_fused_optimizer on, off, on, off):")
+        report["optimizer_ab"] = phase_optimizer_ab(args.seed, args.out)
         torch.cuda.empty_cache()
 
     sources = {

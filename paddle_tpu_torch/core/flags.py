@@ -69,3 +69,7 @@ def get_flag(name: str):
 define_flag("check_index_bounds", False,
             "eager range-check of embedding indices (one host sync per "
             "call); off, out-of-range ids clamp to [0, V)")
+define_flag("use_fused_optimizer", True,
+            "Adam/AdamW step as multi-tensor (torch._foreach_*) updates, one "
+            "per group of parameters sharing device, dtype, weight decay "
+            "and step count; off, one update per parameter")

@@ -8,7 +8,10 @@ backward is the hand-written flash-attention kernel and every LayerNorm
 forward the hand-written LayerNorm kernel. Training goes through
 ``models/trainer.py`` ``create_train_step``; the loss's cross-entropy
 is the hand-written CE forward and backward kernels on the card
-(``nn/functional/loss.py``).
+(``nn/functional/loss.py``), or with ``lm_ce="blockwise"`` the
+vocabulary-streamed LM head and CE (``ops/fused_ce.py``, plain
+PyTorch). ``use_recompute`` recomputes each encoder layer in the
+backward, in train mode.
 
 ``decode_step`` is the cached decode/prefill step the serving engine
 runs: the pre-norm layers replayed with positioned cache writes and the
@@ -31,6 +34,7 @@ from ..nn.initializer import Normal
 from ..nn.layer import (Dropout, Embedding, LayerNorm, TransformerEncoder,
                         TransformerEncoderLayer)
 from .decode import ContiguousKV, decode_attention, init_contiguous_cache
+from .llama import blockwise_lm_loss
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt2_small",
            "gpt2_tiny"]
@@ -46,6 +50,13 @@ class GPTConfig:
     intermediate_size: int = 3072
     dropout: float = 0.1
     layer_norm_eps: float = 1e-5
+    # "plain": logits through the tied head, then the CE kernels;
+    # "blockwise": the vocabulary-chunked LM head + CE of ops/fused_ce.py
+    lm_ce: str = "plain"
+    # recompute each encoder layer in the backward (train mode only),
+    # keeping what recompute_policy names (distributed/fleet/recompute)
+    use_recompute: bool = False
+    recompute_policy: str = "full"
 
 
 def gpt2_small() -> GPTConfig:
@@ -77,6 +88,8 @@ class GPTModel(nn.Module):
             activation="gelu", normalize_before=True,
             layer_norm_eps=config.layer_norm_eps, **kw)
         self.encoder = TransformerEncoder(enc_layer, config.num_layers)
+        self.encoder.enable_recompute = config.use_recompute
+        self.encoder.recompute_policy = config.recompute_policy
         self.ln_f = LayerNorm(config.hidden_size,
                               epsilon=config.layer_norm_eps, device=device)
 
@@ -114,6 +127,9 @@ class GPTForCausalLM(nn.Module):
 
     def loss(self, input_ids: torch.Tensor, labels: torch.Tensor
              ) -> torch.Tensor:
+        if self.config.lm_ce == "blockwise":
+            return blockwise_lm_loss(self.gpt(input_ids),
+                                     self.gpt.wte.weight, labels)
         logits = self(input_ids)
         b, s, v = logits.shape
         return F.cross_entropy(logits.reshape(b * s, v),

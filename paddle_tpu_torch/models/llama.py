@@ -2,8 +2,9 @@
 
 Module layout and parameter names follow paddle_tpu, so a state_dict
 carries across by name (``models/convert.py``); linear weights keep
-Paddle's ``[in, out]`` layout. Parameters are drawn on the requested
-device from an explicit generator.
+Paddle's ``[in, out]`` layout. Parameters are drawn in fp32 on the
+requested device from an explicit generator; ``write_back`` casts them
+(the train cell runs bf16 parameters).
 
 Two paths:
 
@@ -12,10 +13,19 @@ Two paths:
   (input, post-attention, final) are the hand-written CUDA kernel on the
   card; attention is the plain, GQA-aware, length-masked
   ``decode_attention``.
-- ``LlamaForCausalLM.forward``: the full-context path, differentiable.
-  Attention is ``F.scaled_dot_product_attention`` with the causal mask:
-  the hand-written flash-attention kernels on the card (GQA-native),
-  their plain versions on the CPU; the RMSNorms are the RMSNorm kernel.
+- ``LlamaForCausalLM.forward`` and ``loss``: the full-context path,
+  differentiable, trained through ``models/trainer.py``. Attention is
+  ``F.scaled_dot_product_attention`` with the causal mask (and the
+  config's dropout in train mode, drawn from the model's generator): the
+  hand-written flash-attention kernels on the card (GQA-native), their
+  plain versions on the CPU; the RMSNorms are the RMSNorm kernel. RoPE
+  runs in fp32 and its result is rounded back to the projections' dtype,
+  so a bf16 model hands the flash kernels bf16 q, k and v (the reference
+  passes its attention fp32 q and k beside a bf16 v). ``lm_ce`` picks
+  the loss: "plain" (logits, then the CE kernels) or "blockwise" (the
+  vocabulary-streamed LM head and CE of ``ops/fused_ce.py``).
+  ``use_recompute`` recomputes each decoder layer in the backward, in
+  train mode (``distributed/fleet/recompute``).
 """
 from __future__ import annotations
 
@@ -29,14 +39,17 @@ from torch import nn
 
 from ..core.random import DEFAULT_SEED, make_generator
 from ..device import resolve_device
+from ..distributed.fleet.recompute import recompute
 from ..nn import functional as F
 from ..nn.initializer import Normal
 from ..nn.layer import Embedding, Linear, RMSNorm
+from ..ops.fused_ce import blockwise_linear_cross_entropy
 from .decode import (ContiguousKV, apply_rope_at, decode_attention,
                      init_contiguous_cache)
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel", "llama_7b",
-           "llama_tiny", "apply_rotary_pos_emb"]
+           "llama_13b", "llama_tiny", "apply_rotary_pos_emb",
+           "causal_lm_loss", "blockwise_lm_loss"]
 
 
 @dataclass
@@ -50,10 +63,25 @@ class LlamaConfig:
     max_position_embeddings: int = 4096
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    dropout: float = 0.0
+    use_recompute: bool = False
+    # what a recomputed layer keeps: "full" replays the whole layer;
+    # "dots_saveable"/"selective" keep the matmul outputs and replay the
+    # rest (distributed/fleet/recompute)
+    recompute_policy: str = "full"
+    # "plain": logits through lm_head, then CE; "blockwise": the
+    # vocabulary-chunked LM head + CE of ops/fused_ce.py (the logits are
+    # never held whole)
+    lm_ce: str = "plain"
 
 
 def llama_7b() -> LlamaConfig:
     return LlamaConfig()
+
+
+def llama_13b() -> LlamaConfig:
+    return LlamaConfig(hidden_size=5120, intermediate_size=13824,
+                       num_layers=40, num_heads=40, num_kv_heads=40)
 
 
 def llama_tiny() -> LlamaConfig:
@@ -79,16 +107,53 @@ def _rope_tables(seq_len: int, head_dim: int, theta: float, device=None):
             torch.as_tensor(sin, dtype=torch.float32, device=dev))
 
 
+def causal_lm_loss(logits, labels):
+    """Token-mean cross entropy over [B, S, V] logits (ignore_index
+    -100): the CE kernels on the card."""
+    b, s, v = logits.shape
+    return F.cross_entropy(logits.reshape(b * s, v), labels.reshape(b * s))
+
+
+def _auto_num_blocks(tokens: int, vocab: int,
+                     target_elems: int = 64 * 1024 * 1024) -> int:
+    """Vocabulary chunks for the blockwise loss: 8, doubled (while the
+    vocabulary still divides, up to 128) until one fp32 [tokens,
+    vocab / nb] chunk holds at most ``target_elems`` entries."""
+    nb = 8
+    while (tokens * (vocab // nb) > target_elems and nb < 128
+           and vocab % (nb * 2) == 0):
+        nb *= 2
+    return nb
+
+
+def blockwise_lm_loss(h, w, labels, transpose_w: bool = False):
+    """Token-mean CE (ignore_index -100) of the LM head ``w`` applied to
+    ``h`` [B, S, H], streamed over vocabulary chunks
+    (``ops/fused_ce.blockwise_linear_cross_entropy``). ``w`` is [V, H]
+    (GPT's tied embedding), or [H, V] with ``transpose_w`` (Llama's
+    untied ``lm_head``)."""
+    b, s, d = h.shape
+    ww = w.t() if transpose_w else w
+    nb = _auto_num_blocks(b * s, ww.shape[0])
+    return blockwise_linear_cross_entropy(
+        h.reshape(b * s, d), ww, labels.reshape(b * s), num_blocks=nb,
+        ignore_index=-100)
+
+
 def apply_rotary_pos_emb(q, k, cos, sin):
-    """Interleaved-pair RoPE on [B, S, H, D] at positions ``[0, S)``."""
+    """Interleaved-pair RoPE on [B, S, H, D] at positions ``[0, S)``, in
+    the tables' fp32; the results come back in q's and k's dtypes."""
     zeros = torch.zeros(q.shape[0], dtype=torch.long, device=q.device)
-    return apply_rope_at(q, k, cos, sin, zeros)
+    qr, kr = apply_rope_at(q, k, cos, sin, zeros)
+    return qr.to(q.dtype), kr.to(k.dtype)
 
 
 class LlamaAttention(nn.Module):
     def __init__(self, cfg: LlamaConfig, **kw):
         super().__init__()
         self.cfg = cfg
+        # draws the attention dropout seeds once the weights are drawn
+        self._generator = kw["generator"]
         self.head_dim = cfg.hidden_size // cfg.num_heads
         init = Normal(0.0, 0.02)
         h, d = cfg.hidden_size, self.head_dim
@@ -105,7 +170,9 @@ class LlamaAttention(nn.Module):
         v = self.v_proj(h).reshape(b, s, cfg.num_kv_heads, self.head_dim)
         cos, sin = cos_sin
         q, k = apply_rotary_pos_emb(q, k, cos, sin)
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        out = F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, dropout_p=cfg.dropout,
+            training=self.training, generator=self._generator)
         return self.o_proj(out.reshape(b, s, cfg.num_heads * self.head_dim))
 
 
@@ -166,13 +233,18 @@ class LlamaModel(nn.Module):
                 f"max_position_embeddings={self.cfg.max_position_embeddings}")
         h = self.embed_tokens(input_ids)
         for layer in self.layers:
-            h = layer(h, self._cos_sin)
+            if self.cfg.use_recompute and self.training:
+                h = recompute(layer, h, self._cos_sin,
+                              policy=self.cfg.recompute_policy)
+            else:
+                h = layer(h, self._cos_sin)
         return self.norm(h)
 
 
 class LlamaForCausalLM(nn.Module):
-    """Llama causal LM in fp32 on ``device`` (default ``cuda``), weights
-    drawn from ``generator`` (default: seed 0 on that device)."""
+    """Llama causal LM on ``device`` (default ``cuda``), fp32 weights
+    drawn from ``generator`` (default: seed 0 on that device), which then
+    draws the attention dropout seeds."""
 
     def __init__(self, cfg: LlamaConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -192,6 +264,15 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids):
         return self.lm_head(self.model(input_ids))
+
+    def loss(self, input_ids, labels):
+        """Token-mean causal-LM loss of ``labels`` (ignore_index -100)
+        through the path ``cfg.lm_ce`` names."""
+        if self.cfg.lm_ce == "blockwise":
+            return blockwise_lm_loss(self.model(input_ids),
+                                     self.lm_head.weight, labels,
+                                     transpose_w=True)
+        return causal_lm_loss(self(input_ids), labels)
 
     # -- autoregressive decode (use_cache path) ---------------------------
     def decode_meta(self) -> dict:

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ...distributed.fleet.recompute import recompute
 from .. import functional as F
 from .common import Dropout, Linear
 from .norm import LayerNorm
@@ -146,7 +147,10 @@ class TransformerEncoderLayer(nn.Module):
 class TransformerEncoder(nn.Module):
     """``num_layers`` copies of ``encoder_layer`` (deep copies, so every
     layer starts from the same weights, as in the reference; the copies
-    share the layer's generator), then an optional ``norm``."""
+    share the layer's generator), then an optional ``norm``. Setting
+    ``enable_recompute`` (and ``recompute_policy``) recomputes each layer
+    in the backward, in train mode only (``distributed/fleet/recompute``;
+    the replay redraws the forward's dropout masks)."""
 
     def __init__(self, encoder_layer: nn.Module, num_layers: int,
                  norm: Optional[nn.Module] = None):
@@ -160,11 +164,17 @@ class TransformerEncoder(nn.Module):
                                for _ in range(num_layers - 1)])
         self.num_layers = num_layers
         self.norm = norm
+        self.enable_recompute = False
+        self.recompute_policy = None
 
     def forward(self, src, src_mask=None):
         output = src
         for layer in self.layers:
-            output = layer(output, src_mask)
+            if self.enable_recompute and self.training:
+                output = recompute(layer, output, src_mask,
+                                   policy=self.recompute_policy)
+            else:
+                output = layer(output, src_mask)
         if self.norm is not None:
             output = self.norm(output)
         return output

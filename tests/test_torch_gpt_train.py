@@ -11,6 +11,8 @@ layer_norm}.py the kernels' arithmetic. Tolerances (fp32): loss at rtol
 loss trajectory at rtol 1e-4; AdamW updates fed identical gradients at
 atol 1e-6.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,6 +87,60 @@ def test_loss_and_grads_match_value_and_grad(pair):
     for n, p in tm.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(ref_grads[n]),
                                    rtol=0, atol=1e-5, err_msg=n)
+
+
+def test_blockwise_loss_and_grads_match_value_and_grad(pair):
+    """lm_ce="blockwise": the vocabulary-streamed LM head through the
+    tied wte, against the reference's blockwise loss."""
+    jm, _, x, y = pair
+    jm.config.lm_ce = "blockwise"
+    try:
+        opt = paddle.optimizer.AdamW(learning_rate=LR, weight_decay=0.01,
+                                     parameters=jm.parameters())
+        loss_call, params, _, _ = jtrainer._functional_pieces(jm, opt, None)
+        ref_loss, ref_grads = jax.jit(jax.value_and_grad(
+            lambda p: loss_call(p, jnp.asarray(x), jnp.asarray(y),
+                                jax.random.key(0))))(params)
+    finally:
+        jm.config.lm_ce = "plain"
+    tm = _fresh_port(jm)
+    tm.config.lm_ce = "blockwise"
+    loss = tm.loss(torch.from_numpy(x), torch.from_numpy(y))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss),
+                               rtol=1e-5)
+    for n, p in tm.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(ref_grads[n]),
+                                   rtol=0, atol=1e-5, err_msg=n)
+
+
+def _dropout_run(jm, x, y, **cfg):
+    """Train-mode loss and gradients of gpt2_tiny at dropout 0.1 with
+    ``cfg``, its generator seeded alike on every call."""
+    c = dataclasses.replace(gpt2_tiny(), dropout=0.1, **cfg)
+    tm = GPTForCausalLM(c, device="cpu",
+                        generator=torch.Generator().manual_seed(11))
+    state_dict_from_numpy(tm, {k: v.numpy()
+                               for k, v in jm.state_dict().items()})
+    tm.train()
+    loss = tm.loss(torch.from_numpy(x), torch.from_numpy(y))
+    loss.backward()
+    return loss.detach(), [p.grad for p in tm.parameters()]
+
+
+@pytest.mark.parametrize("policy", ["full", "dots_saveable"])
+@pytest.mark.parametrize("lm_ce", ["plain", "blockwise"])
+def test_recompute_with_dropout_gives_the_same_bits(pair, policy, lm_ce):
+    """Every encoder layer recomputed, with dropout 0.1 (attention,
+    residual and activation dropout drawn from the model's generator):
+    the loss and every gradient equal the run without recompute."""
+    jm, _, x, y = pair
+    base = _dropout_run(jm, x, y, lm_ce=lm_ce)
+    got = _dropout_run(jm, x, y, lm_ce=lm_ce, use_recompute=True,
+                       recompute_policy=policy)
+    assert torch.equal(got[0], base[0])
+    for a, b in zip(got[1], base[1]):
+        assert torch.equal(a, b)
 
 
 def test_three_train_steps_match_create_train_step(pair):
