@@ -1470,6 +1470,7 @@ def _train_kernel_class(name: str) -> str:
     for key, cls in (("fwd_sm90_kernel", "flash fwd wgmma kernel"),
                      ("dq_sm90_kernel", "flash dq wgmma kernel"),
                      ("dkv_sm90_kernel", "flash dkv wgmma kernel"),
+                     ("dkv128_sm90_kernel", "flash dkv wgmma kernel"),
                      ("softmax_xent_fwd_kernel", "CE fwd kernel"),
                      ("softmax_xent_bwd_kernel", "CE bwd kernel"),
                      ("layer_norm_fwd_kernel", "layer_norm kernel"),
@@ -2136,11 +2137,18 @@ def phase_optimizer_ab(seed, out_dir):
     return out
 
 
+# the backward kernels of the Llama train cell's attention (bias-free,
+# no dropout, D = 128), reported on lines of their own by the build phase
+LLAMA_BWD_KERNELS = ("dq_sm90_kernel<128,0,0,0>", "dkv128_sm90_kernel<0,0,0>")
+
+
 def _short_kernel(mangled: str) -> str:
     """``dq_sm90_kernel<64,0,1,0>`` for a mangled wgmma kernel name: its
     template arguments (the head dim it is built for, then dropout, bias
-    and segments off or on, as the kernel declares them)."""
-    m = re.search(r"\d+([a-z]+_sm90_kernel)I((?:L[ib]\d+E)+)", mangled)
+    and segments off or on, as the kernel declares them;
+    ``dkv128_sm90_kernel`` is built for D = 128 alone)."""
+    m = re.search(r"\d+([a-z]+(?:128)?_sm90_kernel)I((?:L[ib]\d+E)+)",
+                  mangled)
     if not m:
         return mangled
     args = re.findall(r"(\d+)E", m.group(2))
@@ -2170,17 +2178,22 @@ def ptxas_report(text: str, sass: str = "") -> dict:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 cur["registers"] = int(m.group(1))
-    code, loads = {}, {}
+    code, loads, top = {}, {}, {}
     for part in sass.split("Function : ")[1:]:
         name, body = part.split(None, 1)
         code[_short_kernel(name)] = (body.count("HGMMA"),
                              body.count("WARPGROUP.DEPBAR"))
         # global (LDG) and generic (LD) loads in the code, not per run
         loads[_short_kernel(name)] = len(re.findall(r"\bLDG?\.E", body))
+        # the highest register the code names: above ptxas's count (the
+        # launch's 168) where setmaxnreg gave the consumers more
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", body)]
+        top[_short_kernel(name)] = max(regs, default=None)
     for row in kernels:
         if row["kernel"] in code:
             row["hgmma"], row["wgmma_waits"] = code[row["kernel"]]
-    return {"kernels": kernels, "warnings": warnings, "global_loads": loads}
+    return {"kernels": kernels, "warnings": warnings, "global_loads": loads,
+            "max_register": top}
 
 
 def sass_of(lib) -> str:
@@ -2243,13 +2256,22 @@ def main(argv=None) -> int:
     ptxas = ptxas_report(sm90_log, sass_of(
         _build.library_path("flash_attention_sm90")))
     for row in ptxas["kernels"]:
-        log(f"  ptxas {row['kernel']}: {row.get('registers')} registers, "
+        log(f"  ptxas {row['kernel']}: {row.get('registers')} registers "
+            f"(highest R{ptxas['max_register'].get(row['kernel'])}), "
             f"spill stores {row.get('spill_stores')} B, loads "
             f"{row.get('spill_loads')} B; SASS {row.get('hgmma')} HGMMA, "
             f"{row.get('wgmma_waits')} wgmma waits, "
             f"{ptxas['global_loads'].get(row['kernel'])} global loads")
     for line in ptxas["warnings"]:
         log(f"  ptxas {line}")
+    for row in ptxas["kernels"]:
+        if row["kernel"] in LLAMA_BWD_KERNELS:
+            serial = (row.get("wgmma_waits") or 0) >= (row.get("hgmma") or 1)
+            log(f"  ptxas Llama cell's bias-free D = 128 {row['kernel']}: "
+                f"spill stores {row.get('spill_stores')} B, loads "
+                f"{row.get('spill_loads')} B; {row.get('hgmma')} HGMMA, "
+                f"{row.get('wgmma_waits')} wgmma waits (products "
+                f"{'serialised' if serial else 'not serialised'})")
 
     report = {"card": card, "build": {"sources": built, "seconds": build_s,
                                       "ptxas_sm90": ptxas}}

@@ -36,9 +36,10 @@
 //   per-element global load, no guard in the loop. These instantiations
 //   read shared memory by ld.shared (the stage's pointers, built from an
 //   aligned integer, would take generic loads: a tenth of dq's time). In
-//   dq and dkv the two consumer warpgroups take turns issuing S and dP
-//   (named barriers 1 and 2, FlashAttention-3's ping-pong), so one's
-//   elementwise pass runs beside the other's products; in the forward the
+//   dq, and in dkv at D = 64, the two consumer warpgroups take turns
+//   issuing S and dP (named barriers 1 and 2, FlashAttention-3's
+//   ping-pong), so one's elementwise pass runs beside the other's
+//   products; dq takes them bias-free too at D = 128. In the forward the
 //   same turns measured 1-4 % slower on an H100, so it has none.
 // - "plane", every other bias, and any bias with segments or dbias. Simple,
 //   not fast: each consumer thread reads the bias and the segment words of
@@ -54,13 +55,20 @@
 // the same bytes, so they are bound by operations (20 and 26 us).
 //
 // Design (FlashAttention-3's split, without its intra-warpgroup overlap;
-// its ping-pong scheduling only in dq's and dkv's "keys" instantiations): 384
-// threads = three warpgroups. Warpgroup 0 is the producer: it gives up
-// registers (setmaxnreg 24) and one thread keeps
-// TMA loads in flight through a ring of stages (two; four in dq), each
-// with a "full" barrier (TMA bytes) and an "empty" barrier (256 consumer
-// arrivals).
-// Warpgroups 1 and 2 are consumers (setmaxnreg 240), 64 rows each.
+// its ping-pong scheduling in dq's "keys" and D = 128 instantiations and
+// in dkv's "keys" ones at D = 64): 384 threads = three warpgroups.
+// Warpgroup 0 is the producer: it gives up registers (setmaxnreg 24) and
+// one thread keeps TMA loads in flight through a ring of stages (two;
+// three in dkv at D = 128; four in dq), each with a "full" barrier (TMA
+// bytes) and an "empty" barrier (256 consumer arrivals).
+// Warpgroups 1 and 2 are consumers (setmaxnreg 240), 64 rows each; the
+// role index comes from lane 0 (warp-uniform) in dq and dkv.
+// ptxas allocates the consumers above the launch's 168 registers for
+// values it spills otherwise, but it keeps wgmma accumulators and A
+// fragments, with what else is live across a wgmma, to about that count:
+// more, and it serialises every wgmma of the kernel (C7512) and spills.
+// Each wgmma kernel is laid out to stay under it (the build phase of
+// chip_smoke.py reports HGMMAs and waits per instantiation).
 //
 // forward: grid (q tiles of 128, B*Hq), long causal rows first. Q is
 //   loaded once; K and V tiles of 128 keys stream. Per tile: S = Q.K^T by
@@ -71,20 +79,35 @@
 //   bf16 in registers as the A operand of O += P.V (RS wgmma, V MN-major).
 //   Epilogue: O / l to bf16 straight from registers (rows past Sq not
 //   stored), lse = m ln 2 + log l.
-// dkv: grid (k tiles of 128, B*Hk); each consumer owns 64 keys with dK and
-//   dV in fp32 registers. K and V are loaded once; Q and dO tiles of 64
-//   rows stream over the group's rep q heads from the causal start, and a
-//   producer warp copies lse (+inf past Sq, so p = 0 there) and delta into
-//   the same stage. Per tile: S^T = K.Q^T and dP^T = V.dO^T (SS, one
-//   group); P^T = exp(S^T scale - lse) masked (the plain version's
-//   rounding, not exp2: p is rounded to bf16 next) and dropped;
-//   dS^T = P^T (dP^T_dropped - delta); dV += P^T.dO and dK += dS^T.Q (RS,
-//   B MN-major). Dropout is a template argument of dkv and dq: in dkv that
-//   took a fifth off its time (fewer registers live); it slowed the
-//   forward. Measured slower and not kept: issuing dV's product while
-//   dS^T is formed, and Q tiles of 32 rows at D = 128 (fewer spills, twice
-//   the tiles). Epilogue: dK x scale and dV to bf16, rows past Sk not
-//   stored.
+// dkv at D = 64: grid (k tiles of 128, B*Hk); each consumer owns 64 keys
+//   with dK and dV in fp32 registers. K and V are loaded once; Q and dO
+//   tiles of 64 rows stream over the group's rep q heads from the causal
+//   start, and a producer warp copies lse (+inf past Sq, so p = 0 there)
+//   and delta into the same stage. Per tile: S^T = K.Q^T and
+//   dP^T = V.dO^T (SS, one group); P^T = exp(S^T scale - lse) masked (the
+//   plain version's rounding, not exp2: p is rounded to bf16 next) and
+//   dropped; dS^T = P^T (dP^T_dropped - delta); dV += P^T.dO and
+//   dK += dS^T.Q (RS, B MN-major). Dropout is a template argument of dkv
+//   and dq: in dkv that took a fifth off its time (fewer registers live);
+//   it slowed the forward. Measured slower and not kept: issuing dV's
+//   product while dS^T is formed. Epilogue: dK x scale and dV to bf16,
+//   rows past Sk not stored.
+// dkv at D = 128 (dkv128_sm90_kernel): dK and dV of 64 keys are 128 fp32
+//   registers a thread, and with S^T and dP^T in flight ptxas serialised
+//   all 24 wgmmas and spilled (1.02 ms at the Llama cell's shape on an
+//   H100 80GB HBM3 at 700 W). So a CTA owns 64 keys and the two
+//   consumers split the accumulators: warpgroup 1 issues S^T = K.Q^T (SS), forms p, hands it to warpgroup 2
+//   in fp32 through shared memory (two buffers, named barriers 1-4) and
+//   accumulates dV += P^T.dO (RS); warpgroup 2 issues dP^T = V.dO^T, forms
+//   dS^T from the p it receives and accumulates dK += dS^T.Q (RS). Each
+//   holds 64 + 32 + 16 registers in wgmma operands, so nothing is
+//   serialised or spilled. Each waits for its previous RS product only
+//   once its next SS one is issued, then releases that product's stage;
+//   three stages. Q and dO stream once per 64 keys instead of 128 (twice
+//   the L2 reads). Measured slower on the same card and not kept: P^T
+//   and dS^T through shared memory for SS products, K and V as register
+//   A fragments for S^T and dP^T, and issuing the next S^T before p is
+//   formed (144 registers: serialised).
 // dq: grid (q tiles of 128, B*Hq), long causal rows first, as the
 //   forward. Q and dO are loaded once; K and V tiles of 64 keys stream
 //   through four stages (registers, not shared memory, bound the tile:
@@ -94,8 +117,10 @@
 //   rounding, masked past the diagonal and at keys >= Sk (zero-filled by
 //   TMA: unlike dkv, no padded lse zeroes them); dropout on dP;
 //   dS = p (dP - delta) packed to bf16 A fragments; dQ += dS.K (RS, K
-//   MN-major). A warpgroup skips the tiles none of its rows sees.
-//   Epilogue: dQ x scale to bf16, rows past Sq not stored.
+//   MN-major). A warpgroup skips the tiles none of its rows sees (at
+//   D = 128 they end the CTA's range: its loop stops at its last tile and
+//   passes the rest through after it; at D = 64 that split measured
+//   slower). Epilogue: dQ x scale to bf16, rows past Sq not stored.
 #include "common.cuh"
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -517,6 +542,7 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 // dkv: grid (nk, B*Hk)
 // ---------------------------------------------------------------------------
 
+// D = 64 (D = 128 takes Dkv128Tile)
 template <int DP>
 struct DkvTile {
   static constexpr int BK = 128, BQ = 64, STAGES = 2, CH = DP / 64;
@@ -577,7 +603,11 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
+  // the role index, warp-uniform (lane 0's): faster in the bias-free and
+  // "keys" instantiations on an H100 (with lse and delta by ld.shared),
+  // slower in the "plane" ones, which keep threadIdx.x / 128
+  const int wg = BIAS == 1 ? static_cast<int>(threadIdx.x) / 128
+                           : __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
   if (wg == 0) {
     // ---- producer: thread 0 drives TMA, warp 1 copies lse and delta ----
     reg_dealloc<kProducerRegs>();
@@ -725,18 +755,13 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       [[maybe_unused]] const float* bplane =
           BIAS == 1 ? mk.bias + b * mk.sb + (bh - b * dm.Hq) * mk.sh : nullptr;
       uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+      const uint32_t ls_addr = smem_u32(ls), dl_addr = smem_u32(dl);
 #pragma unroll
       for (int i = 0; i < BQ / 8; ++i) {
         const int cl = frag_col(l, i, 0);
-        float2 lsv, dlv;
-        if constexpr (BIAS == 2) {
-          // "keys": by ld.shared (the pointers' loads are generic)
-          lsv = lds_f2(smem_u32(ls + cl));
-          dlv = lds_f2(smem_u32(dl + cl));
-        } else {
-          lsv = *reinterpret_cast<const float2*>(ls + cl);
-          dlv = *reinterpret_cast<const float2*>(dl + cl);
-        }
+        // by ld.shared (the pointers' loads would be generic)
+        const float2 lsv = lds_f2(ls_addr + 4 * cl);
+        const float2 dlv = lds_f2(dl_addr + 4 * cl);
         float pv[4], ds[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -807,6 +832,346 @@ dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// dkv at D = 128: grid (Sk / 64, B*Hk)
+// ---------------------------------------------------------------------------
+
+// Each CTA owns 64 keys, and each consumer warpgroup one of the two
+// accumulators: warpgroup 1 forms S^T and P^T and accumulates dV,
+// warpgroup 2 forms dP^T and dS^T and accumulates dK. A warpgroup then
+// holds 64 accumulator registers, one or two 32-register products and a
+// 16-register A fragment (P^T or dS^T, RS products). dK and dV of 64 keys
+// in one warpgroup (128 registers at D = 128) left ptxas no room for a
+// product in flight: it serialised every wgmma and spilled. p crosses from
+// warpgroup 1 to 2 in fp32 through shared memory (two buffers, handed over
+// by named barriers).
+struct Dkv128Tile {
+  static constexpr int DP = 128, BK = 64, BQ = 64, STAGES = 3, CH = 2;
+  static constexpr int KV_CHUNK = BK * 128;
+  static constexpr int KV_BYTES = CH * KV_CHUNK;    // K or V, loaded once
+  static constexpr int Q_CHUNK = BQ * 128;
+  static constexpr int Q_BYTES = CH * Q_CHUNK;      // Q or dO, one stage
+  static constexpr int STAT_BYTES = 2 * BQ * 4;     // lse, delta
+  static constexpr int PF_BYTES = BK * BQ * 4;      // p, fp32: one buffer
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES + STAGES * 2 * Q_BYTES +
+                              2 * PF_BYTES + STAGES * STAT_BYTES + 128;
+};
+
+// named barriers between the consumer warpgroups: p of an even / odd tile
+// stored (warpgroup 1 arrives, 2 syncs), read (2 arrives, 1 syncs)
+constexpr int kBarPReady = 1, kBarPFree = 3;
+
+template <bool DROP, int BIAS, bool SEG>
+__global__ void __launch_bounds__(kThreads, 1)
+dkv128_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, Dims dm,
+                   float scale, int causal, Dropout dr, Mask mk) {
+  using T = Dkv128Tile;
+  constexpr int DP = T::DP, BQ = T::BQ, BK = T::BK, ST = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align1024(smem_raw);
+  uint8_t* Vs = Ks + T::KV_BYTES;
+  uint8_t* Qs = Vs + T::KV_BYTES;                    // [ST] x Q_BYTES
+  uint8_t* dOs = Qs + ST * T::Q_BYTES;               // [ST] x Q_BYTES
+  float* pf = reinterpret_cast<float*>(dOs + ST * T::Q_BYTES);   // [2] x PF_BYTES
+  float* stats = pf + 2 * BK * BQ;                   // [ST][2][BQ]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stats + ST * 2 * BQ);
+  uint64_t* full = kv_full + 1;                      // [ST]
+  uint64_t* empty = full + ST;                       // [ST]
+
+  const int kt = blockIdx.x;
+  const int bhk = blockIdx.y;
+  const int b = bhk / dm.Hk, hk = bhk % dm.Hk;
+  const int rep = dm.Hq / dm.Hk;
+  const int k0 = kt * BK;
+  const int offset = dm.Sk - dm.Sq;
+  const int nq = (dm.Sq + BQ - 1) / BQ;
+  // first q tile whose last row sees key k0: every tile from it on has a
+  // row that sees a key of the CTA, so neither warpgroup skips a tile
+  int qi0 = 0;
+  if (causal) {
+    const int need = k0 - offset - (BQ - 1);
+    qi0 = need <= 0 ? 0 : min(nq, (need + BQ - 1) / BQ);
+  }
+  const int per_head = nq - qi0;
+  const int ntiles = rep * per_head;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1 + 32);           // the TMA thread + the stats warp
+      mbar_init(empty + s, 2 * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the role index, warp-uniform (lane 0's)
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // ---- producer: thread 0 drives TMA, warp 1 copies lse and delta ----
+    reg_dealloc<kProducerRegs>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * T::KV_BYTES);
+      for (int c = 0; c < T::CH; ++c) {
+        tma_load_4d(Ks + c * T::KV_CHUNK, &tk, kv_full, 64 * c, hk, k0, b);
+        tma_load_4d(Vs + c * T::KV_CHUNK, &tv, kv_full, 64 * c, hk, k0, b);
+      }
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % ST;
+        const int h = hk * rep + it / per_head;
+        const int q0 = (qi0 + it % per_head) * BQ;
+        mbar_wait(empty + s, ((it / ST) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * T::Q_BYTES);
+        for (int c = 0; c < T::CH; ++c) {
+          tma_load_4d(Qs + s * T::Q_BYTES + c * T::Q_CHUNK, &tq, full + s, 64 * c, h, q0, b);
+          tma_load_4d(dOs + s * T::Q_BYTES + c * T::Q_CHUNK, &tdo, full + s, 64 * c, h, q0, b);
+        }
+      }
+    } else if (warp == 1) {
+      for (int it = 0; it < ntiles; ++it) {
+        const int s = it % ST;
+        const int bh = b * dm.Hq + hk * rep + it / per_head;
+        const int q0 = (qi0 + it % per_head) * BQ;
+        mbar_wait(empty + s, ((it / ST) & 1) ^ 1);
+        float* st = stats + s * 2 * BQ;
+#pragma unroll
+        for (int rr = 0; rr < BQ / 32; ++rr) {
+          const int j = lane + 32 * rr, row = q0 + j;
+          const size_t idx = static_cast<size_t>(bh) * dm.Sq + row;
+          // as in dkv_sm90_kernel: -inf reads 0, a padded row +inf
+          const float ls = row < dm.Sq ? lse[idx] : INFINITY;
+          st[j] = ls == -INFINITY ? 0.f : ls;
+          st[BQ + j] = row < dm.Sq ? delta[idx] : 0.f;
+        }
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: the CTA's 64 keys, one accumulator each ----
+  reg_alloc<kConsumerRegs>();
+  const int t = threadIdx.x & 127;
+  const int w = t >> 5, l = t & 31;
+  // p's float2 v (0..15) of thread t at pf_base + 1024 v: thread t of
+  // warpgroup 2 reads what thread t of warpgroup 1 stored (the same
+  // accumulator elements)
+  const uint32_t pf_base = smem_u32(pf) + 8 * t;
+  const uint32_t seed = DROP ? static_cast<uint32_t>(dr.seed[0]) : 0u;
+  float acc[DP / 2];                                 // dV (warpgroup 1), dK (2)
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  if (wg == 1) {
+    // ---- S^T = K Q^T, P^T = exp(S^T scale - lse) masked, dV += P^T dO ----
+    [[maybe_unused]] int kw[2] = {0, 0};             // segment words of the two keys
+    if constexpr (SEG) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        kw[r] = seg_word(mk.kseg, b, dm.Sk, k0 + frag_row(w, l, 2 * r), kNoKey);
+    }
+    // "plane": each key's bias column (-1 past Sk); "keys": the two keys'
+    // biases under the tile's q head (read again where the head changes
+    // and the heads' biases differ), as in dkv_sm90_kernel
+    [[maybe_unused]] long long bkey[2] = {-1, -1};
+    [[maybe_unused]] float bk[2] = {0.f, 0.f};
+    if constexpr (BIAS == 1) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = k0 + frag_row(w, l, 2 * r);
+        bkey[r] = key < dm.Sk ? key * mk.sk : -1;
+      }
+    } else if constexpr (BIAS == 2) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        bk[r] = key_bias(mk, dm, b, hk * rep, k0 + frag_row(w, l, 2 * r));
+    }
+    const uint32_t k_addr = smem_u32(Ks);
+    uint32_t pa[BQ / 16][4];                         // P^T, read by dV's product
+
+    // S^T of tile it, committed as one group
+    auto issue_s = [&](float (&st)[BQ / 2], int it) {
+      const int s = it % ST;
+      const uint32_t q_addr = smem_u32(Qs + s * T::Q_BYTES);
+      mbar_wait(full + s, (it / ST) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_ss<BQ, 0>(st, desc_sw128(k_addr + (kk >> 2) * T::KV_CHUNK + off, 16, 1024),
+                        desc_sw128(q_addr + (kk >> 2) * T::Q_CHUNK + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // tile it, once its S^T and the previous tile's dV product are done:
+    // release that stage, form p (the plain version's rounding and masks,
+    // as dkv_sm90_kernel) for warpgroup 2 and P^T (dropped) as A fragments,
+    // issue dV += P^T dO (dO MN-major) without waiting for it
+    auto finish = [&](float (&st)[BQ / 2], int it) {
+      fence_regs(acc);
+      fence_frags(pa);
+      fence_regs(st);
+      if (it > 0) mbar_arrive(empty + (it + ST - 1) % ST);
+      const int s = it % ST;
+      const int bh = b * dm.Hq + hk * rep + it / per_head;
+      const int q0 = (qi0 + it % per_head) * BQ;
+      if constexpr (BIAS == 2) {
+        if (mk.sh != 0 && it > 0 && it % per_head == 0) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            bk[r] = key_bias(mk, dm, b, bh - b * dm.Hq, k0 + frag_row(w, l, 2 * r));
+        }
+      }
+      named_sync(kBarPFree + (it & 1), 256);         // its p buffer is read
+      const uint32_t pf_addr = pf_base + (it & 1) * T::PF_BYTES;
+      const uint32_t ls_addr = smem_u32(stats + s * 2 * BQ);
+      const bool cut = causal && k0 + 63 > q0 + offset;
+      const uint32_t seed_bh = DROP ? mix_seed(seed, bh) : 0u;
+      [[maybe_unused]] const float* bplane =
+          BIAS == 1 ? mk.bias + b * mk.sb + (bh - b * dm.Hq) * mk.sh : nullptr;
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        const int cl = frag_col(l, i, 0);
+        const float2 lsv = lds_f2(ls_addr + 4 * cl);
+        float pv[4], pk[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = k0 + frag_row(w, l, j);
+          const int qr = q0 + cl + (j & 1);
+          float x = __fmul_rn(st[4 * i + j], scale);
+          if constexpr (BIAS == 1)
+            x = __fadd_rn(x, qr < dm.Sq && bkey[j >> 1] >= 0
+                                 ? bplane[qr * mk.sq + bkey[j >> 1]]
+                                 : 0.f);
+          else if constexpr (BIAS == 2)
+            x = __fadd_rn(x, bk[j >> 1]);
+          float p = expf(x - ((j & 1) ? lsv.y : lsv.x));
+          if constexpr (SEG) {
+            if ((cut && key > qr + offset) ||
+                !seg_sees(seg_word(mk.qseg, b, dm.Sq, qr, kNoQuery), kw[j >> 1],
+                          mk.seg_causal))
+              p = 0.f;
+          } else {
+            if (cut && key > qr + offset) p = 0.f;
+          }
+          pv[j] = p;
+          pk[j] = p;
+          if constexpr (DROP)
+            pk[j] = keep(seed_bh, qr, key, dm.Sk, dr.thresh) ? p * dr.keep_scale : 0.f;
+        }
+        sts_f2(pf_addr + 1024 * (2 * i), make_float2(pv[0], pv[1]));
+        sts_f2(pf_addr + 1024 * (2 * i + 1), make_float2(pv[2], pv[3]));
+        pa[i >> 1][2 * (i & 1)] = pack_bf16(pk[0], pk[1]);
+        pa[i >> 1][2 * (i & 1) + 1] = pack_bf16(pk[2], pk[3]);
+      }
+      named_arrive(kBarPReady + (it & 1), 256);      // p to warpgroup 2
+      const uint32_t do_addr = smem_u32(dOs + s * T::Q_BYTES);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<DP, 1>(acc, pa[kk], desc_sw128(do_addr + kk * 2048, T::Q_CHUNK, 1024), 1);
+      wgmma_commit();
+    };
+
+    mbar_wait(kv_full, 0);
+    float st[BQ / 2];
+    for (int it = 0; it < ntiles; ++it) {
+      issue_s(st, it);
+      wgmma_wait<0>();
+      finish(st, it);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_frags(pa);
+    if (ntiles > 0) mbar_arrive(empty + (ntiles - 1) % ST);
+    // warpgroup 2's last two releases of the p buffers
+    named_sync(kBarPFree + (ntiles & 1), 256);
+    named_sync(kBarPFree + ((ntiles + 1) & 1), 256);
+  } else {
+    // ---- dP^T = V dO^T, dS^T = P^T (dP^T_dropped - delta), dK += dS^T Q ----
+    const uint32_t v_addr = smem_u32(Vs);
+    uint32_t da[BQ / 16][4];                         // dS^T, read by dK's product
+    named_arrive(kBarPFree, 256);                    // both p buffers free
+    named_arrive(kBarPFree + 1, 256);
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % ST;
+      const int bh = b * dm.Hq + hk * rep + it / per_head;
+      const int q0 = (qi0 + it % per_head) * BQ;
+      const uint32_t q_addr = smem_u32(Qs + s * T::Q_BYTES);
+      const uint32_t do_addr = smem_u32(dOs + s * T::Q_BYTES);
+      float dpt[BQ / 2];
+      mbar_wait(full + s, (it / ST) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk & 3) * 32;
+        wgmma_ss<BQ, 0>(dpt, desc_sw128(v_addr + (kk >> 2) * T::KV_CHUNK + off, 16, 1024),
+                        desc_sw128(do_addr + (kk >> 2) * T::Q_CHUNK + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      // the previous tile's dK product is done: release its stage
+      wgmma_wait<1>();
+      fence_regs(acc);
+      fence_frags(da);
+      if (it > 0) mbar_arrive(empty + (it + ST - 1) % ST);
+      wgmma_wait<0>();
+      fence_regs(dpt);
+
+      const uint32_t dl_addr = smem_u32(stats + s * 2 * BQ + BQ);
+      const uint32_t seed_bh = DROP ? mix_seed(seed, bh) : 0u;
+      named_sync(kBarPReady + (it & 1), 256);        // this tile's p stored
+      const uint32_t pf_addr = pf_base + (it & 1) * T::PF_BYTES;
+#pragma unroll
+      for (int i = 0; i < BQ / 8; ++i) {
+        const int cl = frag_col(l, i, 0);
+        const float2 dlv = lds_f2(dl_addr + 4 * cl);
+        const float2 p01 = lds_f2(pf_addr + 1024 * (2 * i));
+        const float2 p23 = lds_f2(pf_addr + 1024 * (2 * i + 1));
+        const float pp[4] = {p01.x, p01.y, p23.x, p23.y};
+        float ds[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float dp = dpt[4 * i + j];
+          if constexpr (DROP)
+            dp = keep(seed_bh, q0 + cl + (j & 1), k0 + frag_row(w, l, j), dm.Sk, dr.thresh)
+                     ? dp * dr.keep_scale
+                     : 0.f;
+          ds[j] = pp[j] * (dp - ((j & 1) ? dlv.y : dlv.x));
+        }
+        da[i >> 1][2 * (i & 1)] = pack_bf16(ds[0], ds[1]);
+        da[i >> 1][2 * (i & 1) + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      named_arrive(kBarPFree + (it & 1), 256);       // p buffer read
+
+      // dK += dS^T Q (Q MN-major); waited for behind the next tile's dP^T
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        wgmma_rs<DP, 1>(acc, da[kk], desc_sw128(q_addr + kk * 2048, T::Q_CHUNK, 1024), 1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_frags(da);
+    if (ntiles > 0) mbar_arrive(empty + (ntiles - 1) % ST);
+  }
+  const size_t stride = static_cast<size_t>(dm.Hk) * dm.D;
+  const size_t koff = (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  if (wg == 1)
+    store_rows<DP>(dv + koff, stride, acc, k0, dm.Sk, dm.D, 1.f, 1.f, w, l);
+  else
+    store_rows<DP>(dk + koff, stride, acc, k0, dm.Sk, dm.D, scale, scale, w, l);
+}
+
+// ---------------------------------------------------------------------------
 // dq: grid (nq, B*Hq)
 // ---------------------------------------------------------------------------
 
@@ -862,7 +1227,7 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     nk = last < 0 ? 0 : min(nk, last / BK + 1);
   }
 
-  constexpr bool PP = BIAS == 3;
+  constexpr bool PP = BIAS == 3 || DP == 128;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < ST; ++s) {
@@ -874,7 +1239,8 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
+  // the role index, warp-uniform (lane 0's), as in dkv
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
   if (wg == 0) {
     // ---- producer: thread 0 drives TMA; under "keys" warp 1 copies each
     // stage's key biases (0 past Sk) into the stage ----
@@ -964,14 +1330,23 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       // completes; warpgroup 2's first arrival lets warpgroup 1 start
       if (cw == 1) named_arrive(1, 256);
     }
+    // the key tiles no row of this warpgroup sees (none past Sq; under
+    // causal, none past its last row's diagonal) end the CTA's range:
+    // [nk_w, nk), passed through after the loop
+    constexpr bool SPLIT = DP == 128;
+    int nk_w = row_base >= dm.Sq ? 0 : nk;
+    if (causal && nk_w > 0) {
+      const int last = row_base + 63 + offset;
+      nk_w = last < 0 ? 0 : min(nk, last / BK + 1);
+    }
     mbar_wait(q_full, 0);
-    for (int kt = 0; kt < nk; ++kt) {
+    for (int kt = 0; kt < (SPLIT ? nk_w : nk); ++kt) {
       const int s = kt % ST;
       const uint32_t par = (kt / ST) & 1;
       const int k0 = kt * BK;
       // no row of this warpgroup sees a key of the tile: nothing to add
       // (waiting for the tile keeps this arrival in round `kt`, as in dkv)
-      if (row_base >= dm.Sq || (causal && k0 > row_base + 63 + offset)) {
+      if (!SPLIT && (row_base >= dm.Sq || (causal && k0 > row_base + 63 + offset))) {
         mbar_wait(kv_full + s, par);
         if constexpr (PP) {
           named_sync(1 + cw, 256);
@@ -1075,6 +1450,14 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       fence_frags(da);
       mbar_arrive(kv_empty + s);
     }
+    for (int kt = SPLIT ? nk_w : nk; kt < nk; ++kt) {
+      mbar_wait(kv_full + kt % ST, (kt / ST) & 1);
+      if constexpr (PP) {
+        named_sync(1 + cw, 256);
+        named_arrive(2 - cw, 256);
+      }
+      mbar_arrive(kv_empty + kt % ST);
+    }
 
     if constexpr (PP) {
       if (cw == 0) named_sync(1, 256);   // warpgroup 2's last arrival
@@ -1118,6 +1501,35 @@ cudaError_t launch_fwd(const Args& a, bool keys, cudaStream_t s) {
   kern<<<dim3(nq, d.B * d.Hq), kThreads, smem, s>>>(
       tq, tk, tv, static_cast<bf16*>(a.out), a.lse_out, d, a.scale * kLog2e,
       a.causal, a.dr, a.scale, a.mk);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv128(const Args& a, bool keys, cudaStream_t s) {
+  using T = Dkv128Tile;
+  const Dims& d = a.dm;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = make_map_bshd(&tq, a.q, d.B, d.Sq, d.Hq, d.D, T::BQ)) != cudaSuccess ||
+      (err = make_map_bshd(&tdo, a.dout, d.B, d.Sq, d.Hq, d.D, T::BQ)) != cudaSuccess ||
+      (err = make_map_bshd(&tk, a.k, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess ||
+      (err = make_map_bshd(&tv, a.v, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess)
+    return err;
+  // instantiation by (dropout, bias mode, segments), as launch_dkv's
+  static const decltype(&dkv128_sm90_kernel<false, 0, false>) kerns[10] = {
+      dkv128_sm90_kernel<false, 0, false>, dkv128_sm90_kernel<true, 0, false>,
+      dkv128_sm90_kernel<false, 1, false>, dkv128_sm90_kernel<true, 1, false>,
+      dkv128_sm90_kernel<false, 2, false>, dkv128_sm90_kernel<true, 2, false>,
+      dkv128_sm90_kernel<false, 0, true>, dkv128_sm90_kernel<true, 0, true>,
+      dkv128_sm90_kernel<false, 1, true>, dkv128_sm90_kernel<true, 1, true>};
+  static bool smem_set[10] = {};
+  const int mode = a.mk.bias ? (keys ? 2 : 1) : 0;
+  const int var = (a.dr.on ? 1 : 0) + 2 * mode + (a.mk.qseg ? 6 : 0);
+  auto kern = kerns[var];
+  if ((err = allow_smem(kern, T::SMEM, smem_set[var])) != cudaSuccess) return err;
+  const int nk = (d.Sk + T::BK - 1) / T::BK;
+  kern<<<dim3(nk, d.B * d.Hk), kThreads, T::SMEM, s>>>(
+      tq, tk, tv, tdo, a.lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), d, a.scale, a.causal, a.dr, a.mk);
   return cudaGetLastError();
 }
 
@@ -1275,5 +1687,5 @@ extern "C" int flash_dkv_sm90(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(D <= 64 ? launch_dkv<64>(a, bias_keys, s)
-                                  : launch_dkv<128>(a, bias_keys, s));
+                                  : launch_dkv128(a, bias_keys, s));
 }

@@ -107,6 +107,12 @@ __device__ __forceinline__ float4 lds_f4(uint32_t addr) {
   return v;
 }
 
+// 8 bytes to shared memory at the shared-window address `addr`.
+__device__ __forceinline__ void sts_f2(uint32_t addr, float2 v) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(v.x), "f"(v.y)
+               : "memory");
+}
+
 // ---- TMA ------------------------------------------------------------------
 
 // Box at element coordinates (c0, c1, c2, c3) of a rank-4 map into shared

@@ -681,6 +681,50 @@ def test_ptxas_report_reads_registers_spills_and_wgmma_waits():
         "'fwd_sm90_kernel<128>'"]
 
 
+def test_ptxas_report_reads_the_highest_register_of_each_kernel():
+    """The build report's ``max_register``: the highest register each
+    kernel's SASS names (uniform registers, URn, are not counted), above
+    ptxas's launch count where a branch was given more by setmaxnreg."""
+    cs = _chip_smoke()
+    dkv = ("_ZN12_GLOBAL__N_115dkv_sm90_kernelILi128ELb0ELi0ELb0EEEv14CUtens"
+           "orMap_st")
+    fwd = "_ZN12_GLOBAL__N_115fwd_sm90_kernelILi64ELi0ELb0EEEv14CUtensorMap_st"
+    sass = (f"\t\tFunction : {dkv}\n MOV R1, c[0x0][0x28] ;\n"
+            " HGMMA.64x128x16.F32.BF16 R24, gdesc[UR16], R24 ;\n"
+            " FADD R231, R7, UR40 ;\n"
+            f"\t\tFunction : {fwd}\n IADD3 R2, R9, R17, RZ ;\n")
+    rep = cs.ptxas_report("", sass)
+    assert rep["max_register"] == {"dkv_sm90_kernel<128,0,0,0>": 231,
+                                   "fwd_sm90_kernel<64,0,0>": 17}
+    # the anonymous namespace's hash ends in letters and digits
+    dkv128 = ("_ZN56_GLOBAL__N__984e6f69_23_flash_attention_sm90_cu_21afe64018"
+              "dkv128_sm90_kernelILb0ELi0ELb0EEEv14CUtensorMap_st")
+    assert cs._short_kernel(dkv128) == "dkv128_sm90_kernel<0,0,0>"
+    assert cs._short_kernel(dkv128.replace("18dkv128", "15dkv").replace(
+        "ILb0", "ILi64ELb0")) == "dkv_sm90_kernel<64,0,0,0>"
+    assert cs.LLAMA_BWD_KERNELS == ("dq_sm90_kernel<128,0,0,0>",
+                                    "dkv128_sm90_kernel<0,0,0>")
+
+
+@pytest.mark.parametrize("name,cls", [
+    ("void (anonymous namespace)::fwd_sm90_kernel<128, 0, false>(...)",
+     "flash fwd wgmma kernel"),
+    ("void (anonymous namespace)::dq_sm90_kernel<128, false, 0, false>(...)",
+     "flash dq wgmma kernel"),
+    ("void (anonymous namespace)::dkv_sm90_kernel<64, false, 0, false>(...)",
+     "flash dkv wgmma kernel"),
+    ("void (anonymous namespace)::dkv128_sm90_kernel<false, 0, false>(...)",
+     "flash dkv wgmma kernel"),
+    ("void (anonymous namespace)::softmax_xent_fwd_kernel<1>(...)",
+     "CE fwd kernel"),
+    ("void (anonymous namespace)::dkv_kernel<float, 0>(...)",
+     "flash dkv kernel")])
+def test_train_profile_class_of_each_kernel(name, cls):
+    """chip_smoke.py's train-step breakdown puts each flash kernel, the
+    D = 128 dkv's own name included, in its class (not elementwise)."""
+    assert _chip_smoke()._train_kernel_class(name) == cls
+
+
 # ---------------------------------------------------------------------------
 # additive bias, dbias and segment ids, against the reference's
 # flash_attention_ext in interpret mode (tests/test_pallas_flash_attention.py
@@ -901,6 +945,52 @@ def test_forward_bias_class_reaches_the_c_entry_from_the_ext(monkeypatch):
         assert calls[0][1][-2] == want
         moved = [c.launches - b for c, b in zip(counters, before)]
         assert moved == [int(c is counter) for c in counters]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1], ids=["no-dropout", "dropout"])
+def test_llama_d128_backward_takes_the_wgmma_dq_and_dkv(monkeypatch, rate):
+    """On the card branch (dispatch takes the launch, the library records
+    its calls), the Llama train cell's attention (bf16, D = 128, causal,
+    Hq = Hk, no bias) goes by ``flash_route`` to the wgmma kernels: the
+    forward, dq and dkv C entries once each, with D = 128 (their DP = 128
+    instantiations), causal, bias class 0 and no bias pointer (the
+    bias-free instantiations), and dropout off, or on with its threshold
+    and keep scale (the DROP instantiations); each wgmma counter ticks
+    once and no other counter moves."""
+    libs = {n: _fake_library(n)
+            for n in ("flash_attention", "flash_attention_sm90")}
+    monkeypatch.setattr(_build, "load", libs.__getitem__)
+    monkeypatch.setattr(_build, "stream", lambda t: ctypes.c_void_p(0))
+    monkeypatch.setattr(_build, "dispatch",
+                        lambda plain, launch, *a: launch(*a))
+    q, k, v = (torch.zeros(1, 16, 2, 128, dtype=torch.bfloat16,
+                           requires_grad=True) for _ in range(3))
+    assert tfa.flash_route(q.dtype, 128, [t.data_ptr() for t in (q, k, v)]) \
+        == "wgmma"
+    seed = torch.tensor([7], dtype=torch.int32)
+    counters = _all_counters()
+    before = [c.launches for c in counters]
+    out = tfa.flash_attention_ext(q, k, v, seed=seed if rate else None,
+                                  causal=True, dropout_rate=rate)
+    out.backward(torch.zeros_like(out))
+    calls = libs["flash_attention_sm90"].calls
+    assert [fn for fn, _ in calls] == ["flash_fwd_sm90", "flash_dq_sm90",
+                                       "flash_dkv_sm90"]
+    assert libs["flash_attention"].calls == []
+    for fn, args in calls:
+        n = {"flash_fwd_sm90": 5, "flash_dq_sm90": 7, "flash_dkv_sm90": 8}[fn]
+        assert args[n:n + 6] == (1, 16, 16, 2, 2, 128), fn     # B..D
+        assert args[n + 7] == 1, fn                             # causal
+        assert args[n + 8] == int(rate > 0), fn                 # dropout on
+        if rate:
+            assert args[n + 9] == tfa.dropout_threshold(rate), fn
+            assert args[n + 10] == pytest.approx(1 / (1 - rate)), fn
+            assert args[n + 11] == seed.data_ptr(), fn
+        assert args[n + 12] is None, fn                         # no bias
+        assert args[-2] == 0, fn                                # class
+    moved = [c.launches - b for c, b in zip(counters, before)]
+    ticked = (tfa.flash_fwd.wgmma, tfa.flash_dq.wgmma, tfa.flash_dkv.wgmma)
+    assert moved == [int(any(c is t for t in ticked)) for c in counters]
 
 
 def test_dbias_is_computed_only_when_the_bias_requires_grad(monkeypatch):

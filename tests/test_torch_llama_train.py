@@ -10,7 +10,10 @@ gates) and the port its plain versions of the kernels. Tolerances
 order), the 3-step loss trajectory at rtol 1e-4, as in
 tests/test_torch_gpt_train.py. Recompute is held to the run without it
 bit for bit (``torch.equal``): the replay runs the same operations on
-the same inputs, dropout masks included.
+the same inputs, dropout masks included. In bf16 (the port rounds RoPE's
+q and k to bf16, the reference keeps them fp32) the loss and an
+attention output are held at the reference's bf16 tolerance, rtol =
+atol = 2e-2.
 """
 import dataclasses
 
@@ -29,7 +32,8 @@ from paddle_tpu.models import trainer as jtrainer
 from paddle_tpu_torch.distributed.fleet import recompute, recompute_sequential
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      create_train_step, llama_13b,
-                                     llama_tiny, state_dict_from_numpy)
+                                     llama_tiny, state_dict_from_numpy,
+                                     write_back)
 from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.nn.layer import Dropout, Linear
 from paddle_tpu_torch.optimizer import AdamW
@@ -100,6 +104,47 @@ def test_loss_and_grads_match_value_and_grad(ref, lm_ce):
     for n, p in tm.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(ref_grads[n]),
                                    rtol=0, atol=1e-5, err_msg=n)
+
+
+# the reference's own bf16 tolerance (tests/test_pallas_flash_attention.py
+# test_bf16_forward_close: bf16 attention against its fp32 oracle)
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def test_bf16_rope_rounding_stays_within_the_bf16_tolerance(ref):
+    """The port rounds RoPE's fp32 q and k back to bf16, so the flash
+    kernels get one dtype; the reference hands its attention fp32 q and k
+    beside bf16 v. A 2-layer llama_tiny in bf16 on both sides (the same
+    numpy weights rounded to bf16, the same ids): the loss, and layer 0's
+    attention output on the same bf16 input, agree at the reference's
+    bf16 tolerance (rtol = atol = 2e-2)."""
+    _, sd, x, y = ref
+    jm = JaxLlama(jax_llama_tiny())
+    jm.set_state_dict({k: paddle.to_tensor(v) for k, v in sd.items()})
+    jm.bfloat16()
+    tm = _port(sd)
+    write_back(tm, {k: p.detach().to(torch.bfloat16)
+                    for k, p in tm.named_parameters()})
+    assert all(p.dtype == torch.bfloat16 for p in tm.parameters())
+    want = float(jm.loss(paddle.to_tensor(x), paddle.to_tensor(y)).numpy())
+    with torch.no_grad():
+        got = float(tm.loss(torch.from_numpy(x), torch.from_numpy(y)))
+    np.testing.assert_allclose(got, want, **BF16_TOL)
+    h = np.random.RandomState(1).standard_normal((2, 32, 64)).astype(
+        np.float32)
+    ja = jm.model.layers[0].self_attn(paddle.to_tensor(h).astype("bfloat16"),
+                                      jm.model._cos_sin)
+    with torch.no_grad():
+        ta = tm.model.layers[0].self_attn(torch.from_numpy(h).bfloat16(),
+                                          tm.model._cos_sin)
+    assert ta.dtype == torch.bfloat16
+    ref_attn = np.asarray(ja.numpy(), np.float32)
+    np.testing.assert_allclose(ta.float().numpy(), ref_attn, **BF16_TOL)
+    # the deviation PERF.md records (shown with pytest -s)
+    print(f"bf16 RoPE rounding: loss {got:.6f} against the reference's "
+          f"{want:.6f}; attention max |diff| "
+          f"{np.abs(ta.float().numpy() - ref_attn).max():.3g} of max "
+          f"|ref| {np.abs(ref_attn).max():.3g}")
 
 
 @pytest.mark.parametrize("lm_ce", LM_CE)
