@@ -1468,6 +1468,7 @@ def _train_kernel_class(name: str) -> str:
     # first match wins: "fwd_kernel<" is also a substring of the CE and
     # LayerNorm forward kernels' names, so those come before it
     for key, cls in (("fwd_sm90_kernel", "flash fwd wgmma kernel"),
+                     ("fwd_overlap_sm90_kernel", "flash fwd wgmma kernel"),
                      ("dq_sm90_kernel", "flash dq wgmma kernel"),
                      ("dkv_sm90_kernel", "flash dkv wgmma kernel"),
                      ("dkv128_sm90_kernel", "flash dkv wgmma kernel"),
@@ -2137,9 +2138,15 @@ def phase_optimizer_ab(seed, out_dir):
     return out
 
 
-# the backward kernels of the Llama train cell's attention (bias-free,
-# no dropout, D = 128), reported on lines of their own by the build phase
-LLAMA_BWD_KERNELS = ("dq_sm90_kernel<128,0,0,0>", "dkv128_sm90_kernel<0,0,0>")
+# the wgmma kernels of the train cells' bias-free attention, reported on
+# lines of their own by the build phase: the forward at GPT-2's D = 64 and
+# the Llama cell's D = 128, and the Llama cell's dq and dkv (no dropout)
+MAIN_PATH_KERNELS = {
+    "fwd_overlap_sm90_kernel<64>": "GPT-2's bias-free D = 64 forward",
+    "fwd_overlap_sm90_kernel<128>": "Llama cell's bias-free D = 128 forward",
+    "dq_sm90_kernel<128,0,0,0>": "Llama cell's bias-free D = 128 dq",
+    "dkv128_sm90_kernel<0,0,0>": "Llama cell's bias-free D = 128 dkv",
+}
 
 
 def _short_kernel(mangled: str) -> str:
@@ -2147,8 +2154,8 @@ def _short_kernel(mangled: str) -> str:
     template arguments (the head dim it is built for, then dropout, bias
     and segments off or on, as the kernel declares them;
     ``dkv128_sm90_kernel`` is built for D = 128 alone)."""
-    m = re.search(r"\d+([a-z]+(?:128)?_sm90_kernel)I((?:L[ib]\d+E)+)",
-                  mangled)
+    m = re.search(r"\d+([a-z]+(?:_[a-z]+)*?(?:128)?_sm90_kernel)I"
+                  r"((?:L[ib]\d+E)+)", mangled)
     if not m:
         return mangled
     args = re.findall(r"(\d+)E", m.group(2))
@@ -2265,11 +2272,12 @@ def main(argv=None) -> int:
     for line in ptxas["warnings"]:
         log(f"  ptxas {line}")
     for row in ptxas["kernels"]:
-        if row["kernel"] in LLAMA_BWD_KERNELS:
+        if row["kernel"] in MAIN_PATH_KERNELS:
             serial = (row.get("wgmma_waits") or 0) >= (row.get("hgmma") or 1)
-            log(f"  ptxas Llama cell's bias-free D = 128 {row['kernel']}: "
-                f"spill stores {row.get('spill_stores')} B, loads "
-                f"{row.get('spill_loads')} B; {row.get('hgmma')} HGMMA, "
+            log(f"  ptxas {MAIN_PATH_KERNELS[row['kernel']]}, "
+                f"{row['kernel']}: spill stores {row.get('spill_stores')} "
+                f"B, loads {row.get('spill_loads')} B; {row.get('hgmma')} "
+                f"HGMMA, "
                 f"{row.get('wgmma_waits')} wgmma waits (products "
                 f"{'serialised' if serial else 'not serialised'})")
 

@@ -15,10 +15,14 @@ reference's ``custom_vjp`` does.
   ``dlogits @ w_c`` into an fp32 dh and writes that chunk's dw. The
   largest CE temporary is [tokens, vocab / num_blocks].
 
-Matmuls take their operands in the storage dtype and their results are
-read in fp32 (``torch.matmul(...).float()``, the counterpart of the
-reference's ``preferred_element_type=jnp.float32``); softmax arithmetic
-is fp32. The reference computes these outside Pallas (XLA matmuls and a
+Every LM-head product (the logits, the backward's recomputed logits,
+dh's and dw's products) takes its operands in the storage dtype and
+gives an fp32 result, unrounded, as the reference's
+``preferred_element_type=jnp.float32`` does (``_mm32``): on the card
+``torch.mm(..., out_dtype=torch.float32)``, bf16 operands at the tensor
+cores' rate; on the CPU, where that overload does not exist, the product
+of the operands upcast to fp32. Softmax arithmetic is fp32. The
+reference computes these outside Pallas (XLA matmuls and a
 ``lax.scan``), so this is plain PyTorch on both devices: cuBLAS on the
 card.
 """
@@ -40,8 +44,22 @@ def _valid_and_denom(labels: torch.Tensor, ignore_index: Optional[int]):
     return valid, torch.clamp(valid.sum(), min=1)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D) in fp32, never rounded to the operands' dtype
+    first: on the card bf16 or fp16 operands by ``out_dtype`` (an fp32
+    GEMM would run at a fifteenth of the rate); else the operands in fp32
+    (a no-op for fp32 ones)."""
+    if a.dtype != torch.float32 and _on_card(a):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
 def _logits(h: torch.Tensor, w_c: torch.Tensor) -> torch.Tensor:
-    return torch.matmul(h, w_c.t()).float()
+    return _mm32(h, w_c.t())
 
 
 class _FusedCE(torch.autograd.Function):
@@ -68,8 +86,8 @@ class _FusedCE(torch.autograd.Function):
         if ctx.valid is not None:
             dlogits = dlogits * ctx.valid[:, None]
         dlogits = (dlogits * (g / ctx.denom)).to(h.dtype)
-        dh = torch.matmul(dlogits, w).float().to(h.dtype)
-        dw = torch.matmul(dlogits.t(), h).float().to(w.dtype)
+        dh = _mm32(dlogits, w).to(h.dtype)
+        dw = _mm32(dlogits.t(), h).to(w.dtype)
         return dh, dw, None, None
 
 
@@ -134,9 +152,8 @@ class _BlockwiseCE(torch.autograd.Function):
             p.scatter_add_(1, idx[:, None], -in_chunk.float()[:, None])
             dlogits = (p * scale[:, None]).to(h.dtype)
             del p
-            dh += torch.matmul(dlogits, w_c).float()
-            dw[off:off + vb] = torch.matmul(dlogits.t(), h).float().to(
-                w.dtype)
+            dh += _mm32(dlogits, w_c)
+            dw[off:off + vb] = _mm32(dlogits.t(), h).to(w.dtype)
         return dh.to(h.dtype), dw, None, None, None
 
 

@@ -39,8 +39,9 @@
 //   dq, and in dkv at D = 64, the two consumer warpgroups take turns
 //   issuing S and dP (named barriers 1 and 2, FlashAttention-3's
 //   ping-pong), so one's elementwise pass runs beside the other's
-//   products; dq takes them bias-free too at D = 128. In the forward the
-//   same turns measured 1-4 % slower on an H100, so it has none.
+//   products; dq takes them bias-free too at D = 128. In the forwards the
+//   same turns measured slower on an H100 (1-4 % in this kernel, 3-5 % on
+//   top of the bias-free forward's overlap), so neither has them.
 // - "plane", every other bias, and any bias with segments or dbias. Simple,
 //   not fast: each consumer thread reads the bias and the segment words of
 //   its accumulator elements with plain global loads at their (row, col),
@@ -54,12 +55,14 @@
 // 15 us at 3.35 TB/s); dq and dkv do 1.5x and twice the flops on about
 // the same bytes, so they are bound by operations (20 and 26 us).
 //
-// Design (FlashAttention-3's split, without its intra-warpgroup overlap;
-// its ping-pong scheduling in dq's "keys" and D = 128 instantiations and
-// in dkv's "keys" ones at D = 64): 384 threads = three warpgroups.
+// Design (FlashAttention-3's split; its intra-warpgroup overlap in the
+// bias-free forward; its ping-pong scheduling in dq's "keys" and D = 128
+// instantiations and in dkv's "keys" ones at D = 64): 384 threads = three
+// warpgroups.
 // Warpgroup 0 is the producer: it gives up registers (setmaxnreg 24) and
 // one thread keeps TMA loads in flight through a ring of stages (two;
-// three in dkv at D = 128; four in dq), each with a "full" barrier (TMA
+// three in dkv at D = 128 and in the bias-free forward; four in dq), each
+// with a "full" barrier (TMA
 // bytes) and an "empty" barrier (256 consumer arrivals).
 // Warpgroups 1 and 2 are consumers (setmaxnreg 240), 64 rows each; the
 // role index comes from lane 0 (warp-uniform) in dq and dkv.
@@ -70,8 +73,9 @@
 // Each wgmma kernel is laid out to stay under it (the build phase of
 // chip_smoke.py reports HGMMAs and waits per instantiation).
 //
-// forward: grid (q tiles of 128, B*Hq), long causal rows first. Q is
-//   loaded once; K and V tiles of 128 keys stream. Per tile: S = Q.K^T by
+// forward with a bias or segments (fwd_sm90_kernel): grid (q tiles of
+//   128, B*Hq), long causal rows first. Q is loaded once; K and V tiles of
+//   128 keys stream. Per tile: S = Q.K^T by
 //   SS wgmma m64n128k16; masks only on tiles the diagonal or an edge
 //   cuts; online softmax in registers in the exp2 domain (log2(e) folded
 //   into the scale), row max and sum by shuffles over the 4 lanes sharing
@@ -79,6 +83,25 @@
 //   bf16 in registers as the A operand of O += P.V (RS wgmma, V MN-major).
 //   Epilogue: O / l to bf16 straight from registers (rows past Sq not
 //   stored), lse = m ln 2 + log l.
+// forward without either (fwd_overlap_sm90_kernel: every train cell's
+//   attention but BERT's): FlashAttention-3's intra-warpgroup overlap. Per
+//   tile j a consumer issues S_j, rescales O, issues O += P_{j-1}.V_{j-1}
+//   behind it, waits for S_j alone and runs the softmax of j (row max as
+//   a tree, one FFMA and one ex2.approx.ftz per element, row sums,
+//   dropout) while P.V runs, then waits for P.V and packs P_j; the
+//   rescale still precedes each tile's P.V. Live in wgmma operands: O,
+//   S_j and P_{j-1}, so tiles hold 64 keys (64 + 32 + 16 registers at
+//   D = 128; 128 keys serialised every wgmma and spilled). A warpgroup's
+//   loop ends at its last row's diagonal tile, so only that 64 x 64 block
+//   and the key edge are compared element by element, and the CUT and
+//   dropout choices are made once per tile, outside the element loop. K
+//   and V have empty barriers of their own (a K stage is free once S is
+//   done) over three stages. CTAs run in groups of 16 heads, each head's
+//   longest q tile first: K and V stay in L2 and the tail is short.
+//   Measured slower on an H100 and not kept: the warpgroups' ping-pong on
+//   top (3-5 %), 128-key tiles at D = 64 (they spill). What bounds it:
+//   without its softmax it ran at 64 % of the tensor peak at the Llama
+//   cell's shape; the softmax, overlapped by P.V alone, adds half again.
 // dkv at D = 64: grid (k tiles of 128, B*Hk); each consumer owns 64 keys
 //   with dK and dV in fp32 registers. K and V are loaded once; Q and dO
 //   tiles of 64 rows stream over the group's rep q heads from the causal
@@ -128,6 +151,7 @@
 #include <math.h>
 
 #include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -536,6 +560,318 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     bf16* ob = out + (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
     store_rows<DP>(ob, stride, o, row_base, dm.Sq, dm.D, inv[0], inv[1], w, l);
   }
+}
+
+// ---------------------------------------------------------------------------
+// forward without bias or segments: grid (nq, B*Hq), CTAs in head groups
+// ---------------------------------------------------------------------------
+
+// 2^x by the SFU alone (no range fix-up; a p below 2^-126 flushes to 0)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Tiles of 64 keys: O, S, P and the wgmma operands in flight stay inside
+// the registers ptxas keeps for them at DP = 128 (64 + 32 + 16; tiles of
+// 128 keys need 64 + 64 + 32 and serialised every wgmma).
+template <int DP>
+struct FwdOvTile {
+  static constexpr int BQ = 128, BK = 64, STAGES = 3, CH = DP / 64;
+  static constexpr int Q_CHUNK = BQ * 128;          // bytes of one 64-col chunk
+  static constexpr int KV_CHUNK = BK * 128;
+  static constexpr int Q_BYTES = CH * Q_CHUNK;
+  static constexpr int KV_BYTES = CH * KV_CHUNK;    // K or V, one stage
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 128;
+  // heads whose q tiles run longest first, before the next group's: their
+  // K and V stay in L2 (16 heads at S = 2048, D = 128: 16 MB)
+  static constexpr int HEAD_GROUP = 16;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_overlap_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        bf16* __restrict__ out, float* __restrict__ lse,
+                        Dims dm, float scale_log2, int causal, Dropout dr) {
+  using T = FwdOvTile<DP>;
+  constexpr int BQ = T::BQ, BK = T::BK, ST = T::STAGES, G = T::HEAD_GROUP;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* Ks = Qs + T::Q_BYTES;                     // [ST] x KV_BYTES
+  uint8_t* Vs = Ks + ST * T::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + ST * T::KV_BYTES);
+  uint64_t* k_full = q_full + 1;                     // [ST]
+  uint64_t* v_full = k_full + ST;                    // [ST]
+  uint64_t* k_empty = v_full + ST;                   // [ST]
+  uint64_t* v_empty = k_empty + ST;                  // [ST]
+
+  // block -> (q tile, head): groups of G heads, inside a group every
+  // head's longest q tile first
+  const int nq = (dm.Sq + BQ - 1) / BQ;
+  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
+  const int g0 = blk / (G * nq) * G;
+  const int gn = min(G, static_cast<int>(gridDim.y) - g0);
+  const int qi = nq - 1 - (blk - g0 * nq) / gn;
+  const int bh = g0 + (blk - g0 * nq) % gn;
+  const int b = bh / dm.Hq, h = bh % dm.Hq;
+  const int hk = h / (dm.Hq / dm.Hk);
+  const int q0 = qi * BQ;
+  const int offset = dm.Sk - dm.Sq;
+  const int nk = fwd_key_tiles<BQ, BK>(dm, q0, causal);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, 2 * 128);
+      mbar_init(v_empty + s, 2 * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the role index, warp-uniform (lane 0's), as in dq
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == 0) {
+    // ---- producer: thread 0 drives TMA. K and V have barriers of their
+    // own: a K stage is free once S is done, a V stage once P V is ----
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
+      for (int c = 0; c < T::CH; ++c)
+        tma_load_4d(Qs + c * T::Q_CHUNK, &tq, q_full, 64 * c, h, q0, b);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % ST;
+        const uint32_t par = ((kt / ST) & 1) ^ 1;
+        mbar_wait(k_empty + s, par);
+        mbar_expect_tx(k_full + s, T::KV_BYTES);
+        for (int c = 0; c < T::CH; ++c)
+          tma_load_4d(Ks + s * T::KV_BYTES + c * T::KV_CHUNK, &tk, k_full + s,
+                      64 * c, hk, kt * BK, b);
+        mbar_wait(v_empty + s, par);
+        mbar_expect_tx(v_full + s, T::KV_BYTES);
+        for (int c = 0; c < T::CH; ++c)
+          tma_load_4d(Vs + s * T::KV_BYTES + c * T::KV_CHUNK, &tv, v_full + s,
+                      64 * c, hk, kt * BK, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each ----
+  reg_alloc<kConsumerRegs>();
+  const int cw = wg - 1;
+  const int t = threadIdx.x & 127;
+  const int w = t >> 5, l = t & 31;
+  const int row_base = q0 + 64 * cw;                 // first row of this warpgroup
+  // the key tiles this warpgroup's rows see: none past Sq; under causal,
+  // none past its last row's diagonal (the CTA's other tiles, passed
+  // through after the loop)
+  int nw = row_base >= dm.Sq ? 0 : nk;
+  if (causal && nw > 0) {
+    const int last = row_base + 63 + offset;
+    nw = last < 0 ? 0 : min(nk, last / BK + 1);
+  }
+  const uint32_t seed_bh =
+      dr.on ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+  // one FFMA per element needs the max taken on unscaled scores
+  const bool raw_ok = scale_log2 > 0.f;
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float lsum[2] = {0.f, 0.f};                        // this thread's share
+  float alpha[2];
+  float sc[BK / 2];                                  // S, then p in place
+  uint32_t pa[BK / 16][4];                           // P, bf16 A fragments
+  const uint32_t q_addr = smem_u32(Qs) + 64 * cw * 128;
+
+  // S = Q K^T of tile kt (fp32, 64 x BK), committed as one group
+  auto issue_s = [&](int kt) {
+    const uint32_t k_addr = smem_u32(Ks + kt % ST * T::KV_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss<BK, 0>(sc, desc_sw128(q_addr + (kk >> 2) * T::Q_CHUNK + off, 16, 1024),
+                      desc_sw128(k_addr + (kk >> 2) * T::KV_CHUNK + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P V of tile kt (V MN-major), committed as one group
+  auto issue_pv = [&](int kt) {
+    const uint32_t v_addr = smem_u32(Vs + kt % ST * T::KV_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<DP, 1>(o, pa[kk], desc_sw128(v_addr + kk * 2048, T::KV_CHUNK, 1024), 1);
+    wgmma_commit();
+  };
+  // Online softmax of tile kt in the exp2 domain: p (dropped) in place in
+  // sc, m and lsum carried, alpha set. CUT (the diagonal or the key edge
+  // cuts the tile, or the scale is not positive): scale, compare each
+  // element, exp2(x - m); else one FFMA per element, exp2(s c - m).
+  // Dropout is chosen per tile, so neither branch sits in the element loop.
+  auto softmax = [&](auto cut_tag, auto drop_tag, int kt) {
+    constexpr bool CUT = decltype(cut_tag)::value;
+    constexpr bool DROP = decltype(drop_tag)::value;
+    constexpr int NB = BK / 8;                       // n-blocks of 8 keys
+    const int k0 = kt * BK;
+    if constexpr (CUT) {
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x = sc[4 * i + j] * scale_log2;
+          const int c = k0 + frag_col(l, i, j);
+          const int r = row_base + frag_row(w, l, j);
+          if (c >= dm.Sk || (causal && c > r + offset)) x = -INFINITY;
+          sc[4 * i + j] = x;
+        }
+    }
+    // row maxima as a tree (a max is exact in any order)
+    float mx[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float tr[NB];
+#pragma unroll
+      for (int i = 0; i < NB; ++i) tr[i] = fmaxf(sc[4 * i + 2 * r], sc[4 * i + 2 * r + 1]);
+#pragma unroll
+      for (int n = NB / 2; n > 0; n /= 2)
+#pragma unroll
+        for (int i = 0; i < n; ++i) tr[i] = fmaxf(tr[i], tr[i + n]);
+      mx[r] = quad_max(tr[0]);
+    }
+    float neg_m[2];                                  // -m, 0 while m is -inf
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the scale is positive and rounding monotone: max fl(s c) is
+      // fl(max(s) c), the CUT branch's maximum
+      const float m_new = fmaxf(m[r], CUT ? mx[r] : mx[r] * scale_log2);
+      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = exp2f(m[r] - m_safe);               // 0 while m was -inf
+      m[r] = m_new;
+      neg_m[r] = -m_safe;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float p = ex2_ftz(CUT ? sc[4 * i + j] + neg_m[j >> 1]
+                              : fmaf(sc[4 * i + j], scale_log2, neg_m[j >> 1]));
+        rs[j >> 1] += p;
+        if constexpr (DROP)
+          p = keep(seed_bh, row_base + frag_row(w, l, j), k0 + frag_col(l, i, j),
+                   dm.Sk, dr.thresh)
+                  ? p * dr.keep_scale
+                  : 0.f;
+        sc[4 * i + j] = p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) lsum[r] = alpha[r] * lsum[r] + rs[r];
+  };
+  auto softmax_tile = [&](int kt) {
+    const int k0 = kt * BK;
+    const bool cut = !raw_ok || k0 + BK > dm.Sk ||
+                     (causal && k0 + BK - 1 > row_base + offset);
+    if (cut) {
+      if (dr.on) softmax(std::true_type{}, std::true_type{}, kt);
+      else softmax(std::true_type{}, std::false_type{}, kt);
+    } else {
+      if (dr.on) softmax(std::false_type{}, std::true_type{}, kt);
+      else softmax(std::false_type{}, std::false_type{}, kt);
+    }
+    // the pass stays ahead of the wait for P V: nothing it computes may
+    // sink past that wait
+    fence_regs(sc);
+    fence_regs(lsum);
+    fence_regs(alpha);
+  };
+  auto rescale = [&]() {
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) o[4 * i + j] *= alpha[j >> 1];
+  };
+  auto pack = [&]() {
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      pa[i >> 1][2 * (i & 1)] = pack_bf16(sc[4 * i], sc[4 * i + 1]);
+      pa[i >> 1][2 * (i & 1) + 1] = pack_bf16(sc[4 * i + 2], sc[4 * i + 3]);
+    }
+  };
+
+  mbar_wait(q_full, 0);
+  if (nw > 0) {
+    // tile 0: S, softmax, P
+    mbar_wait(k_full, 0);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    mbar_arrive(k_empty);
+    softmax_tile(0);
+    pack();
+    // tile kt: S of kt, then O rescaled and P V of kt - 1 issued behind
+    // it; the softmax of kt runs once S is done, while P V runs
+    for (int kt = 1; kt < nw; ++kt) {
+      mbar_wait(k_full + kt % ST, (kt / ST) & 1);
+      mbar_wait(v_full + (kt - 1) % ST, ((kt - 1) / ST) & 1);
+      fence_regs(o);
+      wgmma_fence();
+      issue_s(kt);
+      rescale();
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv(kt - 1);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      mbar_arrive(k_empty + kt % ST);
+      softmax_tile(kt);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_frags(pa);
+      mbar_arrive(v_empty + (kt - 1) % ST);
+      pack();
+    }
+    // P V of the last tile
+    mbar_wait(v_full + (nw - 1) % ST, ((nw - 1) / ST) & 1);
+    rescale();
+    fence_regs(o);
+    wgmma_fence();
+    issue_pv(nw - 1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_frags(pa);
+    mbar_arrive(v_empty + (nw - 1) % ST);
+  }
+  // the CTA's tiles no row of this warpgroup sees: released in order (the
+  // waits keep each arrival in its round, as in dq)
+  for (int kt = nw; kt < nk; ++kt) {
+    mbar_wait(k_full + kt % ST, (kt / ST) & 1);
+    mbar_arrive(k_empty + kt % ST);
+    mbar_wait(v_full + kt % ST, (kt / ST) & 1);
+    mbar_arrive(v_empty + kt % ST);
+  }
+
+  // epilogue
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float L = quad_sum(lsum[r]);
+    inv[r] = L > 0.f ? 1.f / L : 0.f;
+    const int row = row_base + frag_row(w, l, 2 * r);
+    if ((l & 3) == 0 && row < dm.Sq)
+      lse[static_cast<size_t>(bh) * dm.Sq + row] =
+          L > 0.f ? m[r] * kLn2 + logf(L) : -INFINITY;
+  }
+  const size_t stride = static_cast<size_t>(dm.Hq) * dm.D;
+  bf16* ob = out + (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
+  store_rows<DP>(ob, stride, o, row_base, dm.Sq, dm.D, inv[0], inv[1], w, l);
 }
 
 // ---------------------------------------------------------------------------
@@ -1477,23 +1813,38 @@ dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 // another call's tensors.
 template <int DP>
 cudaError_t launch_fwd(const Args& a, bool keys, cudaStream_t s) {
-  using T = FwdTile<DP>;
   const Dims& d = a.dm;
   CUtensorMap tq, tk, tv;
   cudaError_t err;
+  if (!a.mk.bias && !a.mk.qseg) {
+    // bias-free: fwd_overlap_sm90_kernel
+    using T = FwdOvTile<DP>;
+    if ((err = make_map_bshd(&tq, a.q, d.B, d.Sq, d.Hq, d.D, T::BQ)) != cudaSuccess ||
+        (err = make_map_bshd(&tk, a.k, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess ||
+        (err = make_map_bshd(&tv, a.v, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess)
+      return err;
+    static bool smem_set = false;
+    if ((err = allow_smem(fwd_overlap_sm90_kernel<DP>, T::SMEM, smem_set)) != cudaSuccess)
+      return err;
+    const int nq = (d.Sq + T::BQ - 1) / T::BQ;
+    fwd_overlap_sm90_kernel<DP><<<dim3(nq, d.B * d.Hq), kThreads, T::SMEM, s>>>(
+        tq, tk, tv, static_cast<bf16*>(a.out), a.lse_out, d, a.scale * kLog2e,
+        a.causal, a.dr);
+    return cudaGetLastError();
+  }
+  using T = FwdTile<DP>;
   if ((err = make_map_bshd(&tq, a.q, d.B, d.Sq, d.Hq, d.D, T::BQ)) != cudaSuccess ||
       (err = make_map_bshd(&tk, a.k, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess ||
       (err = make_map_bshd(&tv, a.v, d.B, d.Sk, d.Hk, d.D, T::BK)) != cudaSuccess)
     return err;
   // instantiation by (bias mode, segments); the "keys" class (mode 2) has
   // no segments
-  static const decltype(&fwd_sm90_kernel<DP, 0, false>) kerns[5] = {
-      fwd_sm90_kernel<DP, 0, false>, fwd_sm90_kernel<DP, 1, false>,
-      fwd_sm90_kernel<DP, 2, false>, fwd_sm90_kernel<DP, 0, true>,
-      fwd_sm90_kernel<DP, 1, true>};
-  static bool smem_set[5] = {};
+  static const decltype(&fwd_sm90_kernel<DP, 1, false>) kerns[4] = {
+      fwd_sm90_kernel<DP, 1, false>, fwd_sm90_kernel<DP, 2, false>,
+      fwd_sm90_kernel<DP, 0, true>, fwd_sm90_kernel<DP, 1, true>};
+  static bool smem_set[4] = {};
   const int mode = a.mk.bias ? (keys ? 2 : 1) : 0;
-  const int var = mode + (a.mk.qseg ? 3 : 0);
+  const int var = a.mk.qseg ? 2 + (mode != 0) : mode - 1;
   const int smem = T::SMEM + (mode == 2 ? T::KEY_BIAS_BYTES : 0);
   auto kern = kerns[var];
   if ((err = allow_smem(kern, smem, smem_set[var])) != cudaSuccess) return err;

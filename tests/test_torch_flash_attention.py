@@ -702,12 +702,19 @@ def test_ptxas_report_reads_the_highest_register_of_each_kernel():
     assert cs._short_kernel(dkv128) == "dkv128_sm90_kernel<0,0,0>"
     assert cs._short_kernel(dkv128.replace("18dkv128", "15dkv").replace(
         "ILb0", "ILi64ELb0")) == "dkv_sm90_kernel<64,0,0,0>"
-    assert cs.LLAMA_BWD_KERNELS == ("dq_sm90_kernel<128,0,0,0>",
-                                    "dkv128_sm90_kernel<0,0,0>")
+    fwd = ("_ZN56_GLOBAL__N__984e6f69_23_flash_attention_sm90_cu_21afe64023"
+           "fwd_overlap_sm90_kernelILi128EEEv14CUtensorMap_st")
+    assert cs._short_kernel(fwd) == "fwd_overlap_sm90_kernel<128>"
+    # the train cells' bias-free kernels, reported on lines of their own
+    assert sorted(cs.MAIN_PATH_KERNELS) == [
+        "dkv128_sm90_kernel<0,0,0>", "dq_sm90_kernel<128,0,0,0>",
+        "fwd_overlap_sm90_kernel<128>", "fwd_overlap_sm90_kernel<64>"]
 
 
 @pytest.mark.parametrize("name,cls", [
     ("void (anonymous namespace)::fwd_sm90_kernel<128, 0, false>(...)",
+     "flash fwd wgmma kernel"),
+    ("void (anonymous namespace)::fwd_overlap_sm90_kernel<128>(...)",
      "flash fwd wgmma kernel"),
     ("void (anonymous namespace)::dq_sm90_kernel<128, false, 0, false>(...)",
      "flash dq wgmma kernel"),
@@ -991,6 +998,56 @@ def test_llama_d128_backward_takes_the_wgmma_dq_and_dkv(monkeypatch, rate):
     moved = [c.launches - b for c, b in zip(counters, before)]
     ticked = (tfa.flash_fwd.wgmma, tfa.flash_dq.wgmma, tfa.flash_dkv.wgmma)
     assert moved == [int(any(c is t for t in ticked)) for c in counters]
+
+
+@pytest.mark.parametrize("d,rate,bias", [
+    (128, 0.0, None), (128, 0.1, None), (64, 0.0, None), (64, 0.1, None),
+    (64, 0.1, "keys")], ids=["llama-d128", "llama-d128-dropout", "gpt2-d64",
+                             "gpt2-d64-dropout", "bert-keys-d64-dropout"])
+def test_bias_free_forward_reaches_the_overlap_instantiation(monkeypatch, d,
+                                                             rate, bias):
+    """On the card branch (dispatch takes the launch, the library records
+    its calls), a bias-free bf16 causal forward, the Llama cell's at D =
+    128 and GPT-2's at D = 64, with dropout and without, hands
+    ``flash_fwd_sm90`` its D, no bias pointer, no segment words and bias
+    class 0: the arguments on which ``launch_fwd``
+    (``csrc/flash_attention_sm90.cu``) takes ``fwd_overlap_sm90_kernel<DP>``
+    (DP = 64 or 128 by D), dropout on with its threshold, keep scale and
+    seed, or off; it counts on ``flash_fwd.wgmma`` alone. BERT's key mask
+    ([B,1,1,S]) still reaches the "keys" instantiation
+    (``fwd_sm90_kernel<64,2,0>``): its bias pointer and class 1, counted on
+    ``flash_fwd.wgmma_keybias``."""
+    libs = {n: _fake_library(n)
+            for n in ("flash_attention", "flash_attention_sm90")}
+    monkeypatch.setattr(_build, "load", libs.__getitem__)
+    monkeypatch.setattr(_build, "stream", lambda t: ctypes.c_void_p(0))
+    monkeypatch.setattr(_build, "dispatch",
+                        lambda plain, launch, *a: launch(*a))
+    q, k, v = (torch.zeros(2, 16, 2, d, dtype=torch.bfloat16)
+               for _ in range(3))
+    mask = torch.zeros(2, 1, 1, 16) if bias else None
+    seed = torch.tensor([7], dtype=torch.int32)
+    counters = _all_counters()
+    before = [c.launches for c in counters]
+    tfa.flash_attention_ext(q, k, v, bias=mask, seed=seed if rate else None,
+                            causal=bias is None, dropout_rate=rate)
+    calls = libs["flash_attention_sm90"].calls
+    assert [fn for fn, _ in calls] == ["flash_fwd_sm90"]
+    assert libs["flash_attention"].calls == []
+    args = calls[0][1]
+    assert args[5:11] == (2, 16, 16, 2, 2, d)                   # B..D
+    assert args[12] == int(bias is None)                        # causal
+    assert args[13] == int(rate > 0)                            # dropout on
+    if rate:
+        assert args[14] == tfa.dropout_threshold(rate)
+        assert args[15] == pytest.approx(1 / (1 - rate))
+        assert args[16] == seed.data_ptr()
+    assert (args[17] is None) == (bias is None)                 # bias
+    assert args[22:24] == (None, None)                          # segments
+    assert args[-2] == int(bias == "keys")                      # class
+    moved = [c.launches - b for c, b in zip(counters, before)]
+    ticked = (tfa.flash_fwd.wgmma_keybias if bias else tfa.flash_fwd.wgmma)
+    assert moved == [int(c is ticked) for c in counters]
 
 
 def test_dbias_is_computed_only_when_the_bias_requires_grad(monkeypatch):
