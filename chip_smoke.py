@@ -15,11 +15,12 @@ Phases, each fatal on failure:
    its SASS's HGMMAs, wgmma waits and global loads.
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (RMSNorm forward, and its backward from the
-   kernel's statistic, at decode's rows and the Llama train cell's
-   [16384, 2048]; LayerNorm at GPT-2's and BERT-large's widths;
-   flash-attention forward, dq and dkv on both routes, wgmma and FMA, at
-   GPT-2's, Llama-2 7B's and the Llama train cell's (B8 S2048 H16 D128)
-   training shapes, GQA, padded lengths, rows
+   kernel's statistic, at decode's rows 1-8 and 13, which take its
+   small-row route, the prompt buckets and the Llama train cell's
+   [16384, 2048], which take its many-row route; LayerNorm at GPT-2's
+   and BERT-large's widths; flash-attention forward, dq and dkv on both
+   routes, wgmma and FMA, at GPT-2's, Llama-2 7B's and the Llama train
+   cell's (B8 S2048 H16 D128) training shapes, GQA, padded lengths, rows
    that see no key, a single query, head dims of 32, 96 and 160, and
    dropout (also at D = 128), whose keep-mask must match exactly in fp32
    and bf16; with an additive bias: BERT-large's key mask, a full bias
@@ -27,9 +28,12 @@ Phases, each fatal on failure:
    that an infinite bias hides; with packed segments, per-segment causal,
    also with unequal q and k lengths; the softmax cross-entropy forward
    and backward at GPT-2's and BERT's training logits, BERT's NSP head
-   (V = 2), Llama's vocabulary, odd vocabularies, logits x100 and labels
-   outside [0, V)), then timed beside its bound, its plain version and
-   the PyTorch call computing the same function (for the flash backward
+   (V = 2), Llama's vocabulary, odd vocabularies, rows starting at every
+   offset from a 16-byte boundary (odd row counts of BERT's vocabulary,
+   V = 30523, views at a storage offset, V = 2 and 7), logits x100 and
+   labels outside [0, V)), then timed beside its bound, its plain version
+   and the PyTorch call computing the same function (RMSNorm also beside
+   an empty kernel's launch floor; for the flash backward
    kernels, sdpa's backward alone; at BERT's shape sdpa takes the same
    float attn_mask and dropout rate). Every check holds entry by entry
    (``check_close``: rtol of |plain| + rms(plain)), but for the bf16
@@ -135,6 +139,7 @@ is ``{"ok": true, "device": {...}}``, or ``{"ok": "partial", ...}`` when
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import os
@@ -248,17 +253,36 @@ def _rms_backward(norms, x, w, g):
     return out
 
 
+def _rms_floor_ms(rows: int, pdl: int) -> float:
+    """Device time of an empty kernel of ``rows`` 256-thread blocks
+    launched through the RMSNorm library's own path (ctypes, the current
+    stream, the same build), as its small-row route launches (``pdl``
+    1: programmatic dependent launch) or as its many-row route does
+    (0): the floor under the kernel's time."""
+    from paddle_tpu_torch.ops.kernels import _build
+    lib = _build.load("rms_norm")
+
+    def launch():
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.rms_norm_floor(rows, pdl, ctypes.c_void_p(stream))
+        _build.check(lib, rc, "rms_norm_floor")
+    return time_graph_ms(launch)
+
+
 def phase_kernels(norms, gen):
     """RMSNorm kernel vs rms_norm_plain on the card (y and inv, held by
     check_close; and the backward from the kernel's inv against autograd
-    of the plain version), then timings. Returns (max |y - plain| in fp32, timing rows, the share of
-    its tolerance each check used)."""
+    of the plain version), then timings beside the launch's floor.
+    Returns (max |y - plain| in fp32, timing rows, the share of its
+    tolerance each check used)."""
     dev = torch.device("cuda")
     worst, used = 0.0, {}
-    # the main path's rows: decode batch bucket 8 and the prompt buckets
-    # 32..512 of the served prompts, at N = 4096; then a ragged row
-    # count and a width that takes the scalar path
-    shapes = [(r, 4096) for r in (8, 32, 64, 128, 256, 512)]
+    # the main path's rows: decode batch buckets 1-8 and the prompt
+    # buckets 32..512 of the served prompts, at N = 4096; the small-row
+    # route takes up to 132 rows (132 and 133 are its edge); then a ragged
+    # row count and a width that takes the scalar path
+    shapes = [(r, 4096) for r in (1, 2, 3, 4, 5, 6, 7, 8, 32, 64, 128, 132,
+                                  133, 256, 512)]
     # the Llama train cell's [B*S, H] = [16384, 2048] (bf16 there)
     for rows, n in shapes + [(16384, 2048), (13, 4096), (3, 1000)]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -286,8 +310,14 @@ def phase_kernels(norms, gen):
                         "dx", dx, dxp, RMS_RTOL["bwd"][dtype])
                     _, used[tag + " dw"] = check_close(
                         "dw", dw, dwp, RMS_RTOL["bwd"][dtype])
+    # decode's batches 1, 8 and 13 (the small-row route), the largest
+    # prompt bucket and the Llama train cell's rows (the many-row route),
+    # each beside an empty kernel of as many blocks launched both ways
     timings = []
-    for rows, n in ((8, 4096), (512, 4096), (16384, 2048)):
+    for rows, n in ((1, 4096), (8, 4096), (13, 4096), (512, 4096),
+                    (16384, 2048)):
+        floor = {"floor_ms": _rms_floor_ms(rows, 0),
+                 "floor_pdl_ms": _rms_floor_ms(rows, 1)}
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(rows, n, device=dev, generator=gen).to(dtype)
             w = (torch.randn(n, device=dev, generator=gen) + 1.0).to(dtype)
@@ -303,12 +333,16 @@ def phase_kernels(norms, gen):
                     lambda: norms.rms_norm(x, w, 1e-5)),
                 "eager_plain_ms": time_eager_ms(
                     lambda: norms.rms_norm_plain(x, w, 1e-5)),
+                **floor,
             }
             row["bound_ms"], row["bound_by"], row["bytes"] = rms_bound(
                 rows, n, dtype)
             timings.append(row)
             log(f"  time rms_norm [{rows},{n}] {row['dtype']}: kernel "
-                f"{row['ms'] * 1e3:.2f} us (eager call "
+                f"{row['ms'] * 1e3:.3f} us; empty-kernel floor "
+                f"{row['floor_ms'] * 1e3:.3f} us launched plain, "
+                f"{row['floor_pdl_ms'] * 1e3:.3f} us with programmatic "
+                f"dependent launch (eager call "
                 f"{row['eager_ms'] * 1e3:.2f} us), plain "
                 f"{row['plain_ms'] * 1e3:.2f} us (eager "
                 f"{row['eager_plain_ms'] * 1e3:.2f} us), "
@@ -961,23 +995,36 @@ def ce_bound(kind: str, rows: int, v: int, dtype: torch.dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-# (name, R, V, dtype, logit scale): GPT-2's training logits (8 x 1024
-# tokens, vocab 50304, bf16), the same vocabulary in fp32, Llama's
-# vocabulary, odd vocabularies on the scalar path (257) and the vector
-# path (200 fp32), logits x100, where a missing max subtraction
-# overflows exp; then BERT-large's MLM logits (16 x 512 tokens, vocab
-# 30522) and NSP logits (16 rows of 2), last, so that the earlier cases
-# keep their inputs
+# (name, R, V, dtype, logit scale, storage offset): GPT-2's training
+# logits (8 x 1024 tokens, vocab 50304, bf16), the same vocabulary in
+# fp32, Llama's vocabulary, odd vocabularies (257: rows that do not start
+# 16-byte aligned; 200 fp32: rows that do), logits x100, where a missing
+# max subtraction overflows exp; then the forward's row-start classes:
+# BERT's vocabulary at an odd row count (rows start 0, 4, 8 and 12 bytes
+# past a 16-byte boundary), V = 30523 (rows only 2-byte aligned), fp32 at
+# V % 4 = 3, contiguous views at storage offset 1 of a bf16 buffer and 3
+# of an fp32 one (no row starts aligned), and rows shorter than a vector
+# (V = 7, also at an offset; V = 2 in fp32 at an offset); then BERT-large's
+# MLM logits (16 x 512 tokens, vocab 30522) and NSP logits (16 rows of 2),
+# last, so that the earlier cases keep their inputs
 CE_CASES = [
-    ("gpt2-train", 8192, 50304, torch.bfloat16, 1.0),
-    ("gpt2-vocab-fp32", 1024, 50304, torch.float32, 1.0),
-    ("llama-vocab", 2048, 32000, torch.float32, 1.0),
-    ("odd-200", 13, 200, torch.float32, 1.0),
-    ("odd-257", 13, 257, torch.float32, 1.0),
-    ("odd-257-bf16", 13, 257, torch.bfloat16, 1.0),
-    ("scaled-x100", 512, 50304, torch.float32, 100.0),
-    ("bert-mlm", 8192, 30522, torch.bfloat16, 1.0),
-    ("bert-nsp", 16, 2, torch.bfloat16, 1.0),
+    ("gpt2-train", 8192, 50304, torch.bfloat16, 1.0, 0),
+    ("gpt2-vocab-fp32", 1024, 50304, torch.float32, 1.0, 0),
+    ("llama-vocab", 2048, 32000, torch.float32, 1.0, 0),
+    ("odd-200", 13, 200, torch.float32, 1.0, 0),
+    ("odd-257", 13, 257, torch.float32, 1.0, 0),
+    ("odd-257-bf16", 13, 257, torch.bfloat16, 1.0, 0),
+    ("scaled-x100", 512, 50304, torch.float32, 100.0, 0),
+    ("v30522-odd-rows", 1023, 30522, torch.bfloat16, 1.0, 0),
+    ("v30523-bf16", 255, 30523, torch.bfloat16, 1.0, 0),
+    ("v32003-fp32", 255, 32003, torch.float32, 1.0, 0),
+    ("v30522-bf16-offset-1", 255, 30522, torch.bfloat16, 1.0, 1),
+    ("v32003-fp32-offset-3", 255, 32003, torch.float32, 1.0, 3),
+    ("v7-bf16", 13, 7, torch.bfloat16, 1.0, 0),
+    ("v7-bf16-offset-1", 13, 7, torch.bfloat16, 1.0, 1),
+    ("v2-fp32-offset-3", 16, 2, torch.float32, 1.0, 3),
+    ("bert-mlm", 8192, 30522, torch.bfloat16, 1.0, 0),
+    ("bert-nsp", 16, 2, torch.bfloat16, 1.0, 0),
 ]
 # entry-wise (check_close). loss and lse are fp32 at every dtype: the
 # kernel and the plain version differ in the order of the row's sum (on
@@ -987,11 +1034,14 @@ CE_CASES = [
 CE_RTOL = {"fwd": 5e-7, "bwd": {torch.float32: 2e-6, torch.bfloat16: 1e-2}}
 
 
-def _ce_inputs(gen, rows, v, dtype, scale):
-    """Logits, labels with -1, V and V+5 among them (loss 0, gradient 0),
-    and a random cotangent."""
+def _ce_inputs(gen, rows, v, dtype, scale, offset=0):
+    """Logits (a contiguous [rows, v] view at ``offset`` elements into a
+    flat buffer), labels with -1, V and V+5 among them (loss 0, gradient
+    0), and a random cotangent."""
     dev = torch.device("cuda")
-    x = (torch.randn(rows, v, device=dev, generator=gen) * scale).to(dtype)
+    flat = (torch.randn(rows * v + offset, device=dev, generator=gen)
+            * scale).to(dtype)
+    x = flat[offset:].view(rows, v)
     lab = torch.randint(0, v, (rows,), device=dev, generator=gen)
     for i, bad in enumerate((-1, v, v + 5)):
         lab[i * rows // 3] = bad
@@ -1008,10 +1058,11 @@ def phase_ce(ce, gen):
     GPT-2's shape, timing rows at BERT's by case, max |kernel - plain| by
     case, the share of its tolerance each check used)."""
     errs, used = {}, {}
-    for name, rows, v, dtype, scale in CE_CASES:
-        x, lab, g = _ce_inputs(gen, rows, v, dtype, scale)
+    for name, rows, v, dtype, scale, offset in CE_CASES:
+        x, lab, g = _ce_inputs(gen, rows, v, dtype, scale, offset)
         log(f"  softmax_xent {name}: [{rows},{v}] {str(dtype)[6:]} "
-            f"scale {scale:g}")
+            f"scale {scale:g}, storage offset {offset} (x at "
+            f"{x.data_ptr() % 16} mod 16 B)")
         loss, lse = ce.softmax_xent_fwd(x, lab)
         lossp, lsep = ce.softmax_xent_fwd_plain(x, lab)
         dx = ce.softmax_xent_bwd(x, lab, lsep, g)
@@ -1040,8 +1091,8 @@ def _ce_timings(ce, gen, case, errs, fwd_bwd=False):
     """The CE kernels' device times at the case's shape beside their
     plain versions, their bound and F.cross_entropy; with ``fwd_bwd``
     also forward plus backward three ways (fwd_bwd_ms)."""
-    name, rows, v, dtype, scale = case
-    x, lab, g = _ce_inputs(gen, rows, v, dtype, scale)
+    name, rows, v, dtype, scale, offset = case
+    x, lab, g = _ce_inputs(gen, rows, v, dtype, scale, offset)
     _, lse = ce.softmax_xent_fwd_plain(x, lab)
     # the library call takes invalid labels only as ignore_index
     lib_lab = torch.where((lab >= 0) & (lab < v), lab,
@@ -1249,7 +1300,7 @@ def phase_serve(cell, seed, card, device="cuda"):
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
-    if "rms_norm_fwd_kernel" in n:
+    if "rms_norm_fwd_kernel" in n or "rms_norm_small_kernel" in n:
         return "rms_norm kernel"
     if "layer_norm_fwd_kernel" in n:
         return "layer_norm kernel"
@@ -1476,6 +1527,7 @@ def _train_kernel_class(name: str) -> str:
                      ("softmax_xent_bwd_kernel", "CE bwd kernel"),
                      ("layer_norm_fwd_kernel", "layer_norm kernel"),
                      ("rms_norm_fwd_kernel", "rms_norm kernel"),
+                     ("rms_norm_small_kernel", "rms_norm kernel"),
                      ("fwd_kernel<", "flash fwd kernel"),
                      ("dq_kernel", "flash dq kernel"),
                      ("dkv_kernel", "flash dkv kernel")):

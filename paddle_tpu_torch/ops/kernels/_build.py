@@ -63,6 +63,9 @@ _SIGNATURES: Dict[str, Dict[str, Tuple[list, object]]] = {
                           ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
                          ctypes.c_int),
+        # (rows, pdl, stream): an empty kernel, the launch's floor
+        "rms_norm_floor": ([ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_void_p], ctypes.c_int),
         "ptk_error_string": ([ctypes.c_int], ctypes.c_char_p),
     },
     "layer_norm": {

@@ -23,7 +23,10 @@ form) came from a TPU measurement. On the H100 both kernels together are
 the fastest of the three at GPT-2's training logits (PERF.md), so the
 port has no such choice: the card always runs both kernels. The reference also sends a vocabulary that is not a
 multiple of 128 to XLA; that is a Mosaic tiling rule of the TPU, and the
-CUDA kernels take any V.
+CUDA kernels take any V and any contiguous logits, a view at a storage
+offset included (the forward reads a row that does not start on a
+16-byte boundary as a scalar head, a body of 16-byte vectors and a
+scalar tail).
 """
 from __future__ import annotations
 

@@ -28,10 +28,27 @@
 // logit is read directly, by one thread, and only when the label is valid,
 // so a label outside [0, V) is never an address. The backward is one block
 // per row writing each element once. Row offsets are 64-bit (R * V passes
-// 2^31 at longer contexts). 16-byte vectors need every row to start
-// aligned (V a multiple of 8 for bf16, 4 for fp32, and aligned bases);
-// other rows take scalar loads. expf/logf, not the fast intrinsics, so the
+// 2^31 at longer contexts). expf/logf, not the fast intrinsics, so the
 // result stays within an ulp or two of the plain PyTorch version.
+//
+// Rows of any alignment (forward). A row that does not start on a 16-byte
+// boundary (BERT's V = 30522 in bf16: row r starts at r x 61044 bytes, 0,
+// 4, 8 or 12 mod 16; an odd V; a view at a storage offset) is read as
+// three parts: a head of at most 16 / sizeof(T) - 1 scalars up to the
+// row's first 16-byte boundary, the aligned body in 16-byte vectors (the
+// loop above, started at the head's end), and a tail of fewer than one
+// vector's scalars. Head and tail are loaded before the body and folded
+// into the thread's (m, s) after it, so they add no round trip. An aligned
+// row has neither and runs the body alone. Scalar loads for the whole row
+// would keep 2 KB in flight per block (four 2-byte loads a thread), the
+// body 16 KB: at BERT's [8192, 30522] bf16 logits the forward takes 0.18
+// ms against a 0.149 ms bound, scalar loads 0.31 ms (NVIDIA H100 80GB
+// HBM3 at 700 W, chip_smoke.py). The body's four loads go out, predicated,
+// before any is converted (the SASS shows four LDG.E.128 in a row), so
+// all four are in flight; eight a thread or 512 threads a block measured
+// slower (chip_ab.py). The backward keeps 16-byte vectors only for rows
+// that start aligned (V a multiple of 8 for bf16, 4 for fp32, and aligned
+// bases) and takes scalar loads for the others.
 #include <math.h>
 
 #include "common.cuh"
@@ -41,20 +58,20 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;  // vectors each thread has in flight
 
-// Fold VEC values into the thread's running (m, s).
-template <int VEC>
+// Fold U x VEC values into the thread's running (m, s).
+template <int U, int VEC>
 __device__ __forceinline__ void accumulate(float& m, float& s,
-                                           const float (&xv)[kUnroll][VEC]) {
+                                           const float (&xv)[U][VEC]) {
   float vm = -INFINITY;
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u)
+  for (int u = 0; u < U; ++u)
 #pragma unroll
     for (int k = 0; k < VEC; ++k) vm = fmaxf(vm, xv[u][k]);
   const float mn = fmaxf(m, vm);
   if (mn == -INFINITY) return;  // nothing but -inf so far: s stays 0
   float acc = s * expf(m - mn);  // m = -inf gives exp(-inf) = 0, s = 0
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u)
+  for (int u = 0; u < U; ++u)
 #pragma unroll
     for (int k = 0; k < VEC; ++k) acc += expf(xv[u][k] - mn);
   m = mn;
@@ -71,32 +88,46 @@ __device__ __forceinline__ void combine(float& m, float& s, float m2,
   s = a + b;
 }
 
-template <typename T, int VEC>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 softmax_xent_fwd_kernel(const T* __restrict__ x,
                         const long long* __restrict__ labels,
                         float* __restrict__ loss, float* __restrict__ lse,
                         int n) {
+  constexpr int VEC = 16 / sizeof(T);
   const long long row = blockIdx.x;
   const T* xr = x + row * static_cast<long long>(n);
-  const int nvec = n / VEC;
+  // head: the scalars before the row's first 16-byte boundary
+  const unsigned mis = reinterpret_cast<uintptr_t>(xr) & 15u;
+  const int head = min(n, static_cast<int>(((16u - mis) & 15u) / sizeof(T)));
+  const T* xb = xr + head;  // the body, 16-byte aligned
+  const int nvec = (n - head) / VEC;
+  const int tail = head + nvec * VEC;  // first scalar after the body
   const int nt = blockDim.x;
+  const int t = threadIdx.x;
+
+  // one head and one tail scalar per thread, loaded ahead of the body
+  const bool edge = t < head || t < n - tail;
+  float ht[1][2] = {{-INFINITY, -INFINITY}};
+  if (t < head) ht[0][0] = ptk::to_float(xr[t]);
+  if (t < n - tail) ht[0][1] = ptk::to_float(xr[tail + t]);
 
   float m = -INFINITY, s = 0.f;
-  for (int base = threadIdx.x; base < nvec; base += kUnroll * nt) {
+  for (int base = t; base < nvec; base += kUnroll * nt) {
     float xv[kUnroll][VEC];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int v = base + u * nt;
       if (v < nvec) {
-        ptk::load_vec<T, VEC>(xr + static_cast<long long>(v) * VEC, xv[u]);
+        ptk::load_vec<T, VEC>(xb + static_cast<long long>(v) * VEC, xv[u]);
       } else {
 #pragma unroll
         for (int k = 0; k < VEC; ++k) xv[u][k] = -INFINITY;
       }
     }
-    accumulate<VEC>(m, s, xv);
+    accumulate(m, s, xv);
   }
+  if (edge) accumulate(m, s, ht);
 
   // warp, then block
 #pragma unroll
@@ -189,16 +220,11 @@ int threads_for(int nvec) {
 template <typename T>
 cudaError_t launch_fwd(const void* x, const long long* labels, float* loss,
                        float* lse, long long rows, int n, cudaStream_t s) {
-  constexpr int kVec = 16 / sizeof(T);
-  const dim3 grid(static_cast<unsigned>(rows));
-  const auto* xp = static_cast<const T*>(x);
-  if (n % kVec == 0 && aligned16(x)) {
-    softmax_xent_fwd_kernel<T, kVec><<<grid, threads_for(n / kVec), 0, s>>>(
-        xp, labels, loss, lse, n);
-  } else {
-    softmax_xent_fwd_kernel<T, 1><<<grid, threads_for(n), 0, s>>>(
-        xp, labels, loss, lse, n);
-  }
+  // at least one warp: a row shorter than a vector is head and tail alone
+  const int nvec = n / static_cast<int>(16 / sizeof(T));
+  softmax_xent_fwd_kernel<T>
+      <<<dim3(static_cast<unsigned>(rows)), threads_for(nvec > 0 ? nvec : 1),
+         0, s>>>(static_cast<const T*>(x), labels, loss, lse, n);
   return cudaGetLastError();
 }
 

@@ -13,7 +13,11 @@ call ever needs the plain version.
 
 ``rms_norm`` and ``layer_norm`` pick by where the tensor lies: a CPU
 tensor goes to the plain version; a CUDA tensor launches the kernel or
-raises. There is no fallback from one to the other.
+raises. There is no fallback from one to the other. The RMSNorm kernel
+has two routes, which its C entry picks from rows and N and which give
+the same bits: up to 132 rows that fit its register cache (decode's
+batch) take a kernel built for latency, launched with programmatic
+dependent launch; more rows take the many-row kernel.
 
 The backwards are plain PyTorch from the saved statistics, as the
 reference's ``_rms_bwd`` and ``_ln_bwd`` are plain XLA:

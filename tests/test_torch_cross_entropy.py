@@ -11,6 +11,8 @@ tests/test_kernel_hygiene_fixes.py): both sides compute the same fp32
 formulas, summed in another order. The bf16 case casts both fp32 results
 to bf16 the same way.
 """
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -82,6 +84,26 @@ def test_forward_loss_and_lse_match_pallas(shape):
     loss, lse = ce.softmax_xent_fwd(torch.from_numpy(x), torch.from_numpy(lab))
     np.testing.assert_allclose(loss.numpy(), loss_ref, **TOL)
     np.testing.assert_allclose(lse.numpy(), lse_ref, **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bert_vocabulary_matches_pallas_kernels(dtype):
+    """BERT's vocabulary, V = 30522 (not a multiple of 8: on the card its
+    rows do not start 16-byte aligned and the forward kernel reads each
+    as head, vector body and tail), 8 rows with an invalid label: the
+    loss and the gradient against the reference's forward and backward
+    kernels in interpret mode."""
+    x, lab = _inputs(8, 30522, seed=21, scale=2.0)
+    lab[5] = -1
+    ct = np.random.RandomState(22).standard_normal(8).astype(np.float32)
+    tdt, jdt = ((torch.float32, jnp.float32) if dtype == "float32"
+                else (torch.bfloat16, jnp.bfloat16))
+    xs = torch.from_numpy(x).to(tdt).float().numpy()   # the dtype's values
+    loss, grad = _port_grad(xs, lab, ct, dtype=tdt)
+    assert grad.dtype == tdt and loss[5] == 0.0
+    np.testing.assert_allclose(loss, _ref_fwd(xs, lab, jdt)[0], **TOL)
+    np.testing.assert_allclose(grad.float().numpy(),
+                               _ref_grad(xs, lab, ct, "pallas", jdt), **TOL)
 
 
 @pytest.mark.parametrize("ref_bwd", REF_BWDS)
@@ -255,6 +277,51 @@ def test_kernel_wrappers_validate_before_building(monkeypatch):
         ce._fwd_launch(x, torch.zeros(3, dtype=torch.int64))
     with pytest.raises(ValueError):
         ce._bwd_launch(x, lab, torch.zeros(4), torch.zeros(5))
+
+
+def _fake_library():
+    """A stand-in for the built library: each C entry is a ctypes function
+    of the declared signature (so the arguments are converted exactly as
+    for the real one) that records its call and returns 0."""
+    lib = type("Lib", (), {})()
+    lib.calls = []
+    for fn, (argtypes, restype) in _build._SIGNATURES["cross_entropy"].items():
+        def record(*args, fn=fn):
+            lib.calls.append((fn, args))
+            return 0
+        setattr(lib, fn, ctypes.CFUNCTYPE(restype, *argtypes)(record))
+    return lib
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 1),
+                                          (torch.float32, 3)])
+def test_view_at_a_storage_offset_reaches_the_kernel_uncopied(
+        monkeypatch, dtype, offset):
+    """On the card branch (the library replaced by one that records its
+    calls), a contiguous [R, V] view at a storage offset, whose rows start
+    off any 16-byte boundary, reaches ``softmax_xent_fwd`` at its own
+    address, not a copy's, with its shape and dtype code; the launch is
+    counted once, through ``_fwd_launch`` and through the dispatching
+    wrapper alike."""
+    lib = _fake_library()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(_build, "stream", lambda t: ctypes.c_void_p(0))
+    monkeypatch.setattr(_build, "dispatch",
+                        lambda plain, launch, *a: launch(*a))
+    flat = torch.zeros(7 * 30522 + offset, dtype=dtype)
+    x = flat[offset:].view(7, 30522)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    lab = torch.arange(7)
+    for call in (ce._fwd_launch, ce.softmax_xent_fwd):
+        lib.calls.clear()
+        before = ce.softmax_xent_fwd.launches
+        call(x, lab)
+        assert ce.softmax_xent_fwd.launches == before + 1
+        [(fn, args)] = lib.calls
+        assert fn == "softmax_xent_fwd"
+        assert args[0] == x.data_ptr() == flat.data_ptr() + offset * (
+            flat.element_size())
+        assert args[4:7] == (7, 30522, _build.DTYPE_CODES[dtype])
 
 
 def test_source_builds_for_sm90a(monkeypatch, tmp_path):

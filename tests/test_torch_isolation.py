@@ -1,6 +1,6 @@
-"""PyTorch port: paddle_tpu_torch and chip_smoke.py never import jax or
-paddle_tpu (only the tests import both), and every entry point defaults
-to the cuda device."""
+"""PyTorch port: paddle_tpu_torch, chip_smoke.py and chip_ab.py never
+import jax or paddle_tpu (only the tests import both), and every entry
+point defaults to the cuda device."""
 import ast
 import inspect
 import os
@@ -25,6 +25,7 @@ def _py_files():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_ab.py")
 
 
 def _module_name(path: str) -> str:

@@ -7,6 +7,10 @@ card by chip_smoke.py. Tolerance: fp32 at rtol=atol=1e-5, the tolerance
 paddle_tpu's own tests/test_pallas_norms.py uses for the kernel against
 XLA; bf16 at 1e-2, one bf16 ulp near 1.
 """
+import ctypes
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,9 +32,11 @@ def _mk(shape, seed):
 
 
 # (4,128), (2,7,256), (300,128): tests/test_pallas_norms.py; (13,256):
-# the padded-tail case of tests/test_kernel_hygiene_fixes.py
+# the padded-tail case of tests/test_kernel_hygiene_fixes.py; (1,4096),
+# (8,4096): Llama-2 7B decode's rows, the kernel's small-row route on the
+# card
 @pytest.mark.parametrize("shape", [(4, 128), (2, 7, 256), (300, 128),
-                                   (13, 256)])
+                                   (13, 256), (1, 4096), (8, 4096)])
 def test_rms_norm_matches_pallas_and_xla(shape):
     x = _mk(shape, 0)
     w = _mk(shape[-1:], 1) + 1.0
@@ -150,6 +156,75 @@ def test_kernel_wrapper_validates_before_building(monkeypatch):
         norms._launch(x, torch.ones(64), EPS)
     with pytest.raises(TypeError):
         norms._launch(x, torch.ones(128, dtype=torch.float64), EPS)
+
+
+def _fake_library():
+    """A stand-in for the built library: each C entry is a ctypes function
+    of the declared signature that records its call and returns 0."""
+    lib = type("Lib", (), {})()
+    lib.calls = []
+    for fn, (argtypes, restype) in _build._SIGNATURES["rms_norm"].items():
+        def record(*args, fn=fn):
+            lib.calls.append((fn, args))
+            return 0
+        setattr(lib, fn, ctypes.CFUNCTYPE(restype, *argtypes)(record))
+    return lib
+
+
+@pytest.mark.parametrize("rows,with_w", [(8, True), (1, False),
+                                         (512, True)])
+def test_launch_hands_the_c_entry_its_arguments(monkeypatch, rows, with_w):
+    """On the card branch (the library replaced by one that records its
+    calls) a launch reaches ``rms_norm_fwd`` once, with (x, w or NULL, y,
+    inv, rows, n, eps, x dtype code, w dtype code, stream): the C entry
+    picks the small-row or the many-row route from rows and n itself,
+    so decode's rows and a prompt bucket pass the same arguments."""
+    lib = _fake_library()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(_build, "stream", lambda t: ctypes.c_void_p(0))
+    x = torch.zeros(rows, 4096)
+    w = torch.ones(4096, dtype=torch.bfloat16) if with_w else None
+    before = norms.rms_norm.launches
+    y, inv = norms._launch(x, w, 1e-5)
+    assert norms.rms_norm.launches == before + 1
+    [(fn, args)] = lib.calls
+    assert fn == "rms_norm_fwd"
+    assert args[0] == x.data_ptr() and args[2] == y.data_ptr()
+    assert args[1] == (w.data_ptr() if with_w else None)
+    assert args[3] == inv.data_ptr() and tuple(inv.shape) == (rows,)
+    assert args[4:6] == (rows, 4096) and args[6] == pytest.approx(1e-5)
+    assert args[7:9] == (0, 1 if with_w else 0)
+
+
+def test_launch_floor_entry_is_declared():
+    """The library also exports ``rms_norm_floor(rows, pdl, stream)``, an
+    empty kernel launched as either route launches, which chip_smoke.py
+    times beside the kernel; it counts on no wrapper."""
+    argtypes, restype = _build._SIGNATURES["rms_norm"]["rms_norm_floor"]
+    assert argtypes == [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    assert restype is ctypes.c_int
+
+
+def _chip_smoke():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", [
+    "void (anonymous namespace)::rms_norm_fwd_kernel<float, float, 4, 4>"
+    "(...)",
+    "void (anonymous namespace)::rms_norm_small_kernel<float, float, 4, 4>"
+    "(...)"])
+def test_profiles_class_both_routes_as_the_rms_norm_kernel(name):
+    """chip_smoke.py's decode and train breakdowns put either route's
+    kernel in the RMSNorm class."""
+    cs = _chip_smoke()
+    assert cs._kernel_class(name) == "rms_norm kernel"
+    assert cs._train_kernel_class(name) == "rms_norm kernel"
 
 
 def test_build_command_targets_sm90a(monkeypatch, tmp_path):
