@@ -2,8 +2,8 @@
 
     python3 chip_ab.py [--out DIR]
 
-Builds copies of two kernel sources, each with one design choice of the
-committed source switched back or to an alternative, under
+Builds copies of three kernel sources, each with one design choice of
+the committed source switched back or to an alternative, under
 ``build/chip_ab`` (one ``nvcc`` per copy, all started at once, with the
 port's build flags), holds each copy's results to the committed
 build's, and times every copy in CUDA graphs in turns (the list
@@ -22,17 +22,31 @@ forward, then backward):
   [8192, 30522] bf16 logits, forward and backward: eight 16-byte vectors
   in flight a thread instead of four, and 512 threads a block instead of
   256. Loss and lse must stay within chip_smoke.py's ``CE_RTOL``.
+- ``csrc/flash_attention.cu``'s fp32 dq and dkv (``dq_fp32_kernel`` /
+  ``dkv_fp32_kernel``) at the attention of the three fp32 oracles (BERT's
+  B2 S512 H16 D64 with its key mask, GPT-2's B1 S1024 H12 D64 and the
+  Llama's B1 S1024 H16 D128, both causal): the one-tile FFMA kernels
+  (dq_kernel / dkv_kernel) in their place, dq at two blocks an SM, dkv on 32-row q tiles (at one
+  and at two blocks an SM), each of which must give the committed
+  build's bits; and both passes with their products on the tensor cores
+  as 3xTF32 (mma.sync m16n8k8, each operand split into two TF32 parts),
+  whose dq, dk and dv are held to the plain version only to report the
+  share of chip_smoke.py's ``FLASH_RTOL["bwd"][fp32]`` they use.
 
-Needs one card; prints the card's name and power limit, each copy's
-time per turn, and writes them as JSON to ``DIR/chip_ab.json`` (default
-``build/chip_ab``). A development aid for choosing among designs, not a
-check of the port: chip_smoke.py is that.
+    python3 chip_ab.py --kernels flash_attention
+
+runs one source's copies alone. Needs one card; prints the card's name
+and power limit, each copy's time per turn, and writes them as JSON to
+``DIR/chip_ab.json`` (default ``build/chip_ab``). A development aid for
+choosing among designs, not a check of the port: chip_smoke.py is that.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
+import math
 import subprocess
 import sys
 import time
@@ -44,9 +58,18 @@ REPO = Path(__file__).resolve().parent
 CSRC = REPO / "paddle_tpu_torch" / "ops" / "kernels" / "csrc"
 
 
-def _edit(src: str, old: str, new: str) -> str:
-    if src.count(old) != 1:
-        raise ValueError(f"chip_ab: the source no longer holds {old!r}")
+def _edit(src: str, old, new: str) -> str:
+    """``src`` with ``old`` replaced by ``new``; ``old`` a (start, end)
+    pair replaces the text from start up to, not including, end. Each
+    piece must occur once."""
+    for piece in (old if isinstance(old, tuple) else (old,)):
+        if src.count(piece) != 1:
+            raise ValueError(f"chip_ab: the source no longer holds "
+                             f"{piece!r}")
+    if isinstance(old, tuple):
+        start, end = old
+        i, j = src.index(start), src.index(end)
+        return src[:i] + new + src[j:]
     return src.replace(old, new)
 
 
@@ -107,6 +130,446 @@ CE_VARIANTS = {
     "512 threads": (("constexpr int kThreads = 256;",
                      "constexpr int kThreads = 512;"),),
 }
+# (old text, new text) rewrites of csrc/flash_attention.cu
+_FA_ONE_TILE = (
+    "constexpr bool kRing = std::is_same<T, float>::value && DP <= 128;",
+    "constexpr bool kRing = false;")
+_FA_DQ_TWO_BLOCKS = (
+    "__global__ void __launch_bounds__(kThreads)\ndq_fp32_kernel",
+    "__global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)\n"
+    "dq_fp32_kernel")
+_FA_DKV_32_ROWS = ("constexpr int kDkvRows = DP == 64 ? 64 : 32;",
+                   "constexpr int kDkvRows = 32;")
+_FA_DKV_TWO_BLOCKS = (
+    "__global__ void __launch_bounds__(kThreads)\ndkv_fp32_kernel",
+    "__global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)\n"
+    "dkv_fp32_kernel")
+_FA_SECTION = ("// dq: grid (nq, B*Hq), as dq_kernel\n",
+               "// -----------------------------------------------------------"
+               "----------------\n// launch\n")
+_FA_3XTF32 = r"""// dq and dkv with their products on the tensor cores, 3xTF32: each fp32
+// operand x split into big = tf32(x) and small = tf32(x - big) (both to
+// nearest), each product taken as small.big + big.small + big.big by
+// mma.sync m16n8k8 with fp32 sums. Tiles of 64 rows x DP under a column
+// swizzle (a fragment read hits the 32 banks once), the same cp.async
+// ring; warp w owns rows 16 (w % 4) and the column half w / 4 of the
+// score tile, and reads its accumulators in place as the A operand of the
+// second product (the reduction index permuted, the B rows to match); the
+// halves' partial sums meet in shared memory.
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int N>
+struct Split {
+  uint32_t big[N], small[N];
+};
+
+__device__ __forceinline__ void mma3(float (&d)[4], const Split<4>& a,
+                                     const Split<2>& b) {
+  mma_tf32(d, a.small, b.big);
+  mma_tf32(d, a.big, b.small);
+  mma_tf32(d, a.big, b.big);
+}
+
+template <int DP>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * DP + (c ^ ((((r >> 1) & 3) << 3) | ((r & 1) << 2)));
+}
+
+template <int DP>
+__device__ __forceinline__ void load_tile_swz(float* dst, const float* base,
+                                              size_t stride, int s0, int S,
+                                              int D, bool vec) {
+  if (vec) {
+    constexpr int CH = DP / 4;
+#pragma unroll
+    for (int it = 0; it < 64 * CH / kThreads; ++it) {
+      const int i = it * kThreads + threadIdx.x;
+      const int r = i / CH, c = (i % CH) * 4, s = s0 + r;
+      const bool ok = s < S && c < D;
+      cp_async16(dst + swz<DP>(r, c),
+                 ok ? base + static_cast<size_t>(s) * stride + c : base,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int it = 0; it < 64 * DP / kThreads; ++it) {
+      const int i = it * kThreads + threadIdx.x;
+      const int r = i / DP, c = i % DP, s = s0 + r;
+      const bool ok = s < S && c < D;
+      cp_async4(dst + swz<DP>(r, c),
+                ok ? base + static_cast<size_t>(s) * stride + c : base,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ Split<4> frag_a(const float* tile, int r0, int c0,
+                                           int g, int t) {
+  Split<4> f;
+  split_tf32(tile[swz<DP>(r0 + g, c0 + t)], f.big[0], f.small[0]);
+  split_tf32(tile[swz<DP>(r0 + g + 8, c0 + t)], f.big[1], f.small[1]);
+  split_tf32(tile[swz<DP>(r0 + g, c0 + t + 4)], f.big[2], f.small[2]);
+  split_tf32(tile[swz<DP>(r0 + g + 8, c0 + t + 4)], f.big[3], f.small[3]);
+  return f;
+}
+template <int DP>
+__device__ __forceinline__ Split<2> frag_b_rows(const float* tile, int n0,
+                                                int c0, int g, int t) {
+  Split<2> f;
+  split_tf32(tile[swz<DP>(n0 + g, c0 + t)], f.big[0], f.small[0]);
+  split_tf32(tile[swz<DP>(n0 + g, c0 + t + 4)], f.big[1], f.small[1]);
+  return f;
+}
+template <int DP>
+__device__ __forceinline__ Split<2> frag_b_cols(const float* tile, int k0,
+                                                int n0, int g, int t) {
+  Split<2> f;
+  split_tf32(tile[swz<DP>(k0 + 2 * t, n0 + g)], f.big[0], f.small[0]);
+  split_tf32(tile[swz<DP>(k0 + 2 * t + 1, n0 + g)], f.big[1], f.small[1]);
+  return f;
+}
+__device__ __forceinline__ Split<4> frag_a_acc(const float (&c)[4]) {
+  Split<4> f;
+  split_tf32(c[0], f.big[0], f.small[0]);
+  split_tf32(c[2], f.big[1], f.small[1]);
+  split_tf32(c[1], f.big[2], f.small[2]);
+  split_tf32(c[3], f.big[3], f.small[3]);
+  return f;
+}
+
+template <int DP, int NT>
+__device__ __forceinline__ void meet_halves(float* R, const float (&acc)[NT][4],
+                                            int wr, bool first, int g, int t) {
+  for (int pass = 0; pass < 2; ++pass) {
+    if (first == (pass == 0)) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& x = R[swz<DP>(wr + g + 8 * (e >> 1), 8 * n + 2 * t + (e & 1))];
+          x = pass == 0 ? acc[n][e] : x + acc[n][e];
+        }
+    }
+    __syncthreads();
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ void store_tile(float* base, size_t stride,
+                                           const float* R, float mul, int s0,
+                                           int S, int D) {
+  for (int i = threadIdx.x; i < 64 * DP; i += kThreads) {
+    const int r = i / DP, c = i % DP;
+    if (s0 + r < S && c < D)
+      base[static_cast<size_t>(s0 + r) * stride + c] = R[swz<DP>(r, c)] * mul;
+  }
+}
+
+template <int DP, bool MASK>
+__global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
+dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dq, Dims dm, float scale, int causal,
+               Dropout dr, Mask mk) {
+  constexpr int BQ = 64, BK = 64, TILE = 64 * DP, NT = DP / 8;
+  extern __shared__ __align__(16) float smem16[];
+  float* Qs = smem16;
+  float* dOs = Qs + TILE;
+  float* Ks = dOs + TILE;
+  float* Vs = Ks + 2 * TILE;
+  float* lse_s = Vs + 2 * TILE;
+  float* dl_s = lse_s + BQ;
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
+            t = threadIdx.x & 3;
+  const int wr = (warp & 3) * 16, wc = (warp >> 2) * 32;
+  const int nq = (dm.Sq + BQ - 1) / BQ;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x);
+  const int bh = blockIdx.y;
+  const int b = bh / dm.Hq, h = bh % dm.Hq;
+  const int hk = h / (dm.Hq / dm.Hk);
+  const int q0 = qi * BQ;
+  const int offset = dm.Sk - dm.Sq;
+  const size_t qstride = static_cast<size_t>(dm.Hq) * dm.D;
+  const size_t kstride = static_cast<size_t>(dm.Hk) * dm.D;
+  const size_t qoff = (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
+  const float* kb = k + (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const float* vb = v + (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const uint32_t seed_bh =
+      dr.on ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+  const bool vec = rows16(q, k, v, dout, dm.D);
+
+  int nk = (dm.Sk + BK - 1) / BK;
+  if (causal) nk = causal_k_tiles<BQ, BK>(q0, offset, nk);
+  load_tile_swz<DP>(Qs, q + qoff, qstride, q0, dm.Sq, dm.D, vec);
+  load_tile_swz<DP>(dOs, dout + qoff, qstride, q0, dm.Sq, dm.D, vec);
+  if (nk > 0) {
+    load_tile_swz<DP>(Ks, kb, kstride, 0, dm.Sk, dm.D, vec);
+    load_tile_swz<DP>(Vs, vb, kstride, 0, dm.Sk, dm.D, vec);
+  }
+  cp_async_commit();
+  for (int r = threadIdx.x; r < BQ; r += kThreads) {
+    const int s = q0 + r;
+    const size_t idx = static_cast<size_t>(bh) * dm.Sq + s;
+    const float ls = s < dm.Sq ? lse[idx] : INFINITY;
+    lse_s[r] = ls == -INFINITY ? 0.f : ls;
+    dl_s[r] = s < dm.Sq ? delta[idx] : 0.f;
+  }
+
+  float acc[NT][4] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < nk) {
+      const int nxt = (kt + 1) & 1;
+      load_tile_swz<DP>(Ks + nxt * TILE, kb, kstride, k0 + BK, dm.Sk, dm.D, vec);
+      load_tile_swz<DP>(Vs + nxt * TILE, vb, kstride, k0 + BK, dm.Sk, dm.D, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Kt = Ks + (kt & 1) * TILE;
+    const float* Vt = Vs + (kt & 1) * TILE;
+
+    float s[4][4] = {}, dp[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 8) {
+      const Split<4> aq = frag_a<DP>(Qs, wr, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma3(s[j], aq, frag_b_rows<DP>(Kt, wc + 8 * j, kk, g, t));
+      const Split<4> ao = frag_a<DP>(dOs, wr, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma3(dp[j], ao, frag_b_rows<DP>(Vt, wc + 8 * j, kk, g, t));
+    }
+
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = wr + g + 8 * (e >> 1), r = q0 + rl;
+        const int c = k0 + wc + 8 * j + 2 * t + (e & 1);
+        float p;
+        if constexpr (MASK) {
+          p = 0.f;
+          if (visible(mk, dm, b, r, c, causal, offset))
+            p = mk.bias ? expf(biased(s[j][e], scale, mk, dm, b, h, r, c) - lse_s[rl])
+                        : expf(s[j][e] * scale - lse_s[rl]);
+        } else {
+          const bool ok = c < dm.Sk && (!causal || c <= r + offset);
+          p = ok ? expf(s[j][e] * scale - lse_s[rl]) : 0.f;
+        }
+        float dpv = dp[j][e];
+        if (dr.on) dpv = keep(seed_bh, r, c, dm.Sk, dr.thresh) ? dpv * dr.keep_scale : 0.f;
+        const float ds = p * (dpv - dl_s[rl]);
+        if constexpr (MASK)
+          if (mk.dbias && r < dm.Sq && c < dm.Sk)
+            mk.dbias[(static_cast<size_t>(bh) * dm.Sq + r) * dm.Sk + c] = ds;
+        s[j][e] = ds;
+      }
+
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const Split<4> a = frag_a_acc(s[j]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        mma3(acc[n], a, frag_b_cols<DP>(Kt, wc + 8 * j, 8 * n, g, t));
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  meet_halves<DP, NT>(Ks, acc, wr, wc == 0, g, t);
+  store_tile<DP>(dq + qoff, qstride, Ks, scale, q0, dm.Sq, dm.D);
+}
+
+template <int DP>
+constexpr int kDkvRows = 64;
+
+template <int DP, bool MASK>
+__global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
+dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dk, float* __restrict__ dv, Dims dm,
+                float scale, int causal, Dropout dr, Mask mk) {
+  constexpr int BQ = 64, BK = 64, TILE = 64 * DP, NT = DP / 8;
+  extern __shared__ __align__(16) float smem16[];
+  float* Ks = smem16;
+  float* Vs = Ks + TILE;
+  float* Qs = Vs + TILE;
+  float* dOs = Qs + 2 * TILE;
+  float* lse_s = dOs + 2 * TILE;
+  float* dl_s = lse_s + 2 * BQ;
+
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7,
+            t = threadIdx.x & 3;
+  const int wr = (warp & 3) * 16, wc = (warp >> 2) * 32;
+  const int kt = blockIdx.x;
+  const int bhk = blockIdx.y;
+  const int b = bhk / dm.Hk, hk = bhk % dm.Hk;
+  const int rep = dm.Hq / dm.Hk;
+  const int k0 = kt * BK;
+  const int offset = dm.Sk - dm.Sq;
+  const int nq = (dm.Sq + BQ - 1) / BQ;
+  const size_t qstride = static_cast<size_t>(dm.Hq) * dm.D;
+  const size_t kstride = static_cast<size_t>(dm.Hk) * dm.D;
+  const size_t koff = (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const bool vec = rows16(q, k, v, dout, dm.D);
+
+  int qs = 0;
+  if (causal)
+    while (qs < nq && k0 > qs * BQ + BQ - 1 + offset) ++qs;
+  const int per = nq - qs, total = rep * per;
+  auto issue = [&](int it, int st) {
+    const int h = hk * rep + it / per, q0 = (qs + it % per) * BQ;
+    const size_t qoff = (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
+    load_tile_swz<DP>(Qs + st * TILE, q + qoff, qstride, q0, dm.Sq, dm.D, vec);
+    load_tile_swz<DP>(dOs + st * TILE, dout + qoff, qstride, q0, dm.Sq, dm.D,
+                      vec);
+    const size_t row0 = static_cast<size_t>(b * dm.Hq + h) * dm.Sq;
+    for (int r = threadIdx.x; r < BQ; r += kThreads) {
+      const bool ok = q0 + r < dm.Sq;
+      cp_async4(lse_s + st * BQ + r, ok ? lse + row0 + q0 + r : lse, ok ? 4 : 0);
+      cp_async4(dl_s + st * BQ + r, ok ? delta + row0 + q0 + r : delta,
+                ok ? 4 : 0);
+    }
+  };
+
+  load_tile_swz<DP>(Ks, k + koff, kstride, k0, dm.Sk, dm.D, vec);
+  load_tile_swz<DP>(Vs, v + koff, kstride, k0, dm.Sk, dm.D, vec);
+  if (total > 0) issue(0, 0);
+  cp_async_commit();
+
+  float acck[NT][4] = {}, accv[NT][4] = {};
+  for (int it = 0; it < total; ++it) {
+    const int h = hk * rep + it / per, q0 = (qs + it % per) * BQ;
+    const int bh = b * dm.Hq + h;
+    const uint32_t seed_bh =
+        dr.on ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+    if (it + 1 < total) {
+      issue(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Qt = Qs + (it & 1) * TILE;
+    const float* dOt = dOs + (it & 1) * TILE;
+    const float* ls = lse_s + (it & 1) * BQ;
+    const float* dl = dl_s + (it & 1) * BQ;
+
+    float st[4][4] = {}, dpt[4][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 8) {
+      const Split<4> ak = frag_a<DP>(Ks, wr, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma3(st[j], ak, frag_b_rows<DP>(Qt, wc + 8 * j, kk, g, t));
+      const Split<4> av = frag_a<DP>(Vs, wr, kk, g, t);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma3(dpt[j], av, frag_b_rows<DP>(dOt, wc + 8 * j, kk, g, t));
+    }
+
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = k0 + wr + g + 8 * (e >> 1);
+        const int rl = wc + 8 * j + 2 * t + (e & 1), r = q0 + rl;
+        const float raw = ls[rl];
+        const float lsv = r < dm.Sq ? (raw == -INFINITY ? 0.f : raw) : INFINITY;
+        float p;
+        if constexpr (MASK) {
+          p = 0.f;
+          if (visible(mk, dm, b, r, c, causal, offset))
+            p = mk.bias ? expf(biased(st[j][e], scale, mk, dm, b, h, r, c) - lsv)
+                        : expf(st[j][e] * scale - lsv);
+        } else {
+          const bool ok = c < dm.Sk && (!causal || c <= r + offset);
+          p = ok ? expf(st[j][e] * scale - lsv) : 0.f;
+        }
+        float pv = p, dpv = dpt[j][e];
+        if (dr.on) {
+          const bool kp = keep(seed_bh, r, c, dm.Sk, dr.thresh);
+          pv = kp ? p * dr.keep_scale : 0.f;
+          dpv = kp ? dpv * dr.keep_scale : 0.f;
+        }
+        st[j][e] = pv;
+        dpt[j][e] = p * (dpv - dl[rl]);
+      }
+
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const Split<4> ap = frag_a_acc(st[j]);
+      const Split<4> ad = frag_a_acc(dpt[j]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        mma3(accv[n], ap, frag_b_cols<DP>(dOt, wc + 8 * j, 8 * n, g, t));
+        mma3(acck[n], ad, frag_b_cols<DP>(Qt, wc + 8 * j, 8 * n, g, t));
+      }
+    }
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  meet_halves<DP, NT>(Qs, acck, wr, wc == 0, g, t);
+  meet_halves<DP, NT>(Qs + TILE, accv, wr, wc == 0, g, t);
+  store_tile<DP>(dk + koff, kstride, Qs, scale, k0, dm.Sk, dm.D);
+  store_tile<DP>(dv + koff, kstride, Qs + TILE, 1.f, k0, dm.Sk, dm.D);
+}
+
+"""
+_FA_3XTF32_SMEM = (
+    "  return sizeof(float) * (pass == Pass::kDq\n"
+    "                              ? 2 * 64 * DP + 4 * 64 * (DP + 4) + 2 * 64\n"
+    "                              : 2 * 64 * DP + 4 * kDkvRows<DP> * (DP + 4) +\n"
+    "                                    2 * 64 * (kDkvRows<DP> + 4) + "
+    "4 * kDkvRows<DP>);",
+    "  return sizeof(float) * (6 * 64 * DP + (pass == Pass::kDq ? 2 : 4) * 64);")
+FA_TENSOR_CORES = "3xTF32 on the tensor cores"
+FLASH_VARIANTS = {
+    "committed": (),
+    "one-tile FFMA kernels": (_FA_ONE_TILE,),
+    "dq at two blocks an SM": (_FA_DQ_TWO_BLOCKS,),
+    "dkv on 32-row q tiles": (_FA_DKV_32_ROWS,),
+    "dkv on 32-row q tiles, two blocks an SM": (_FA_DKV_32_ROWS,
+                                                 _FA_DKV_TWO_BLOCKS),
+    FA_TENSOR_CORES: ((_FA_SECTION, _FA_3XTF32),
+                      (_FA_3XTF32_SMEM[0], _FA_3XTF32_SMEM[1])),
+}
+# (B, S, H, D, causal, BERT's key mask) of the three fp32 oracles' attention
+FLASH_SHAPES = {"BERT oracle": (2, 512, 16, 64, False, True),
+                "GPT-2 oracle": (1, 1024, 12, 64, True, False),
+                "Llama oracle": (1, 1024, 16, 128, True, False)}
+SOURCES = {"rms_norm": RMS_VARIANTS, "cross_entropy": CE_VARIANTS,
+           "flash_attention": FLASH_VARIANTS}
 RMS_SHAPES = [(1, 4096, torch.float32), (8, 4096, torch.float32),
               (13, 4096, torch.float32), (32, 4096, torch.float32),
               (128, 4096, torch.float32), (256, 4096, torch.float32),
@@ -115,11 +578,11 @@ RMS_SHAPES = [(1, 4096, torch.float32), (8, 4096, torch.float32),
 CE_SHAPES = [(8192, 50304), (8192, 30522)]
 
 
-def variant_sources() -> dict:
-    """{(source, variant): text} for every variant of both sources."""
+def variant_sources(names=tuple(SOURCES)) -> dict:
+    """{(source, variant): text} for every variant of the named sources."""
     out = {}
-    for name, table in (("rms_norm", RMS_VARIANTS),
-                        ("cross_entropy", CE_VARIANTS)):
+    for name in names:
+        table = SOURCES[name]
         base = (CSRC / f"{name}.cu").read_text()
         for variant, edits in table.items():
             text = base
@@ -129,13 +592,13 @@ def variant_sources() -> dict:
     return out
 
 
-def _build_all(out_dir: Path) -> dict:
+def _build_all(out_dir: Path, names) -> dict:
     sys.path.insert(0, str(REPO))
     from paddle_tpu_torch.ops.kernels import _build
     work = REPO / "build" / "chip_ab"
     work.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (key, text) in enumerate(variant_sources().items()):
+    for i, (key, text) in enumerate(variant_sources(names).items()):
         src = work / f"{key[0]}_{i}.cu"
         src.write_text(text)
         lib = work / f"lib{key[0]}_{i}.so"
@@ -285,10 +748,88 @@ def ab_cross_entropy(libs, gen) -> dict:
     return res
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ab_flash(libs, gen) -> dict:
+    """fp32 dq and dkv of every flash variant at FLASH_SHAPES: bit for bit
+    the committed build's (the 3xTF32 copy: its share of FLASH_RTOL
+    against the plain version, reported), then timed in turns."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    rtol = _chip_smoke().FLASH_RTOL["bwd"][torch.float32]
+    names = list(FLASH_VARIANTS)
+    load = _build.load
+    res = {}
+    try:
+        for label, (b, s, h, d, causal, keymask) in FLASH_SHAPES.items():
+            q, k, v, do = (torch.randn(b, s, h, d, device="cuda",
+                                       generator=gen) for _ in range(4))
+            bias = None
+            if keymask:
+                lens = torch.randint(128, s + 1, (b,), device="cuda",
+                                     generator=gen)
+                keys = torch.arange(s, device="cuda")[None, :]
+                bias = torch.where(keys < lens[:, None], 0.0,
+                                   -1e9)[:, None, None]
+            scale = 1.0 / math.sqrt(d)
+            out, lse = fa.flash_fwd_plain(q, k, v, causal, scale, bias=bias)
+            delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, do, lse, delta, causal, scale, 0.0, None, bias)
+            plain = (fa.flash_dq_plain(*args),
+                     *fa.flash_dkv_plain(*args))
+
+            def run(name, kind="both"):
+                _build.load = lambda _, n=name: libs[("flash_attention", n)]
+                dq = (fa._dq_launch(*args, route="fma")
+                      if kind != "dkv" else None)
+                dkv = (fa._dkv_launch(*args, route="fma")
+                       if kind != "dq" else (None, None))
+                return (dq, *dkv)
+            want = run("committed")
+            shares = {}
+            for name in names:
+                got = run(name)
+                torch.cuda.synchronize()
+                shares[name] = [
+                    max(0.0, float(((g - p).abs() / (
+                        rtol * (p.abs() + p.pow(2).mean().sqrt()))).max()))
+                    for g, p in zip(got, plain)]
+                if name != FA_TENSOR_CORES and not all(
+                        torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"flash {name} at {label} differs "
+                                         "from the committed build")
+            entry = {"share_of_flash_rtol_dq_dk_dv": shares}
+            for kind in ("dq", "dkv"):
+                entry[kind] = _in_turns(
+                    names, lambda n, kind=kind: run(n, kind), reps=10,
+                    iters=5)
+                print(f"  flash_{kind} fp32 {label}: " + ", ".join(
+                    f"{n} {t[0]:.4f}/{t[1]:.4f}"
+                    for n, t in entry[kind].items()) + " ms", flush=True)
+            print(f"  flash fp32 {label}, share of FLASH_RTOL (dq, dk, dv): "
+                  + ", ".join(f"{n} " + "/".join(f"{x:.3f}" for x in sh)
+                              for n, sh in shares.items()), flush=True)
+            res[label] = entry
+    finally:
+        _build.load = load
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(REPO / "build" / "chip_ab"))
+    ap.add_argument("--kernels", default=",".join(SOURCES),
+                    help="comma-separated subset of " + ",".join(SOURCES))
     args = ap.parse_args(argv)
+    names = tuple(args.kernels.split(","))
+    if not set(names) <= set(SOURCES):
+        ap.error(f"--kernels: unknown {sorted(set(names) - set(SOURCES))}")
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -300,12 +841,15 @@ def main(argv=None) -> int:
         text=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     t0 = time.perf_counter()
-    libs = _build_all(out_dir)
+    libs = _build_all(out_dir, names)
     print(f"built {len(libs)} copies in {time.perf_counter() - t0:.1f} s",
           flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    report = {"card": card, "rms_norm": ab_rms_norm(libs, gen),
-              "cross_entropy": ab_cross_entropy(libs, gen)}
+    runs = {"rms_norm": ab_rms_norm, "cross_entropy": ab_cross_entropy,
+            "flash_attention": ab_flash}
+    report = {"card": card}
+    for name in names:
+        report[name] = runs[name](libs, gen)
     (out_dir / "chip_ab.json").write_text(json.dumps(report, indent=1))
     return 0
 

@@ -12,7 +12,9 @@ Phases, each fatal on failure:
 2. build: every kernel under ``paddle_tpu_torch/ops/kernels/csrc`` with
    nvcc for sm_90a (one nvcc per source, in parallel), timed; ptxas's
    registers, spills and warnings for each tensor-core flash kernel, and
-   its SASS's HGMMAs, wgmma waits and global loads.
+   its SASS's HGMMAs, wgmma waits and global loads; for the FMA route's
+   fp32 dq and dkv (``dq_fp32_kernel`` / ``dkv_fp32_kernel``) registers,
+   spills and the SASS's HMMA, FFMA and shared-load instructions.
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (RMSNorm forward, and its backward from the
    kernel's statistic, at decode's rows 1-8 and 13, which take its
@@ -20,7 +22,8 @@ Phases, each fatal on failure:
    [16384, 2048], which take its many-row route; LayerNorm at GPT-2's
    and BERT-large's widths; flash-attention forward, dq and dkv on both
    routes, wgmma and FMA, at GPT-2's, Llama-2 7B's and the Llama train
-   cell's (B8 S2048 H16 D128) training shapes, GQA, padded lengths, rows
+   cell's (B8 S2048 H16 D128) training shapes, the fp32 attention of the
+   GPT-2, BERT and Llama oracles (FMA), GQA, padded lengths, rows
    that see no key, a single query, head dims of 32, 96 and 160, and
    dropout (also at D = 128), whose keep-mask must match exactly in fp32
    and bf16; with an additive bias: BERT-large's key mask, a full bias
@@ -33,7 +36,9 @@ Phases, each fatal on failure:
    V = 30523, views at a storage offset, V = 2 and 7), logits x100 and
    labels outside [0, V)), then timed beside its bound, its plain version
    and the PyTorch call computing the same function (RMSNorm also beside
-   an empty kernel's launch floor; for the flash backward
+   an empty kernel's launch floor; an fp32 flash kernel beside two
+   bounds, its products at 3xTF32's 165 TFLOP/s and at FFMA's 67; for
+   the flash backward
    kernels, sdpa's backward alone; at BERT's shape sdpa takes the same
    float attn_mask and dropout rate). Every check holds entry by entry
    (``check_close``: rtol of |plain| + rms(plain)), but for the bf16
@@ -157,6 +162,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12     # dense tensor-core peak
+# the fastest product of fp32 operands with fp32 sums: TF32's 495 TFLOP/s
+# dense over the three passes of the 3xTF32 split (big.big + big.small +
+# small.big), as sdpa's fp32 kernels run. The fp32 flash bound; the FMA
+# kernels' own ceiling stays FP32_FLOPS, printed beside it
+TF32X3_FLOPS = 495e12 / 3
 
 NEW_TOKENS = 32
 TIE_ATOL = 1e-4
@@ -525,12 +535,13 @@ def _visible_pairs(sq: int, sk: int, causal: bool) -> int:
 FLASH_FLOPS_PER_PAIR = {"fwd": 4, "dq": 6, "dkv": 8}   # x head_dim
 
 
-def flash_bound(kind, b, sq, sk, hq, hk, d, dtype, causal, bias_bytes=0):
+def flash_bound(kind, b, sq, sk, hq, hk, d, dtype, causal, bias_bytes=0,
+                peak=None):
     """(bound ms, bound_by): flops of the products over the visible pairs
-    at the dtype's peak (bf16 tensor cores; fp32 CUDA cores), or the
-    bytes of each operand read once and each result written once (an
-    additive bias's ``bias_bytes`` included: read once, at its own
-    broadcast shape)."""
+    at the dtype's peak (bf16 tensor cores; fp32 products at 3xTF32's
+    TF32X3_FLOPS, or ``peak``), or the bytes of each operand read once and
+    each result written once (an additive bias's ``bias_bytes`` included:
+    read once, at its own broadcast shape)."""
     es = torch.finfo(dtype).bits // 8
     flops = FLASH_FLOPS_PER_PAIR[kind] * d * b * hq * _visible_pairs(
         sq, sk, causal)
@@ -538,7 +549,8 @@ def flash_bound(kind, b, sq, sk, hq, hk, d, dtype, causal, bias_bytes=0):
     nbytes = {"fwd": 2 * qb + 2 * kb + stat,
               "dq": 3 * qb + 2 * kb + 2 * stat,
               "dkv": 2 * qb + 4 * kb + 2 * stat}[kind] + bias_bytes
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    if peak is None:
+        peak = BF16_FLOPS if dtype == torch.bfloat16 else TF32X3_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -593,6 +605,13 @@ FLASH_CASES = [
      0.1, {"bias": "keymask"}),
     ("bert-oracle-keymask-fp32", 2, 512, 512, 16, 16, 64, torch.float32,
      False, 0.0, {"bias": "keymask"}),
+    # the attention of the GPT-2 and Llama fp32 oracles (one 1024-token
+    # row, causal, no bias; D 64 and 128), whose dq and dkv take the FMA
+    # route's register-blocked fp32 kernels
+    ("gpt2-oracle-fp32", 1, 1024, 1024, 12, 12, 64, torch.float32, True,
+     0.0),
+    ("llama-oracle-fp32", 1, 1024, 1024, 16, 16, 128, torch.float32, True,
+     0.0),
     ("full-bias-dbias", 2, 200, 333, 4, 2, 64, torch.bfloat16, True, 0.0,
      {"bias": "full"}),
     ("full-bias-dbias-fp32", 2, 200, 333, 4, 2, 64, torch.float32, True, 0.0,
@@ -895,9 +914,18 @@ def _flash_timings(fa, gen, case, kinds, bias_as=None):
                "plain_ms": plain_ms[base],
                "library_ms": lib["fwd" if base == "fwd" else "bwd"],
                "eager_ms": time_eager_ms(kern[kind], iters=10)}
+        bias_bytes = 0 if bias is None else bias.numel() * 4
         row["bound_ms"], row["bound_by"] = flash_bound(
-            base, b, sq, sk, hq, hk, d, dtype, causal,
-            0 if bias is None else bias.numel() * 4)
+            base, b, sq, sk, hq, hk, d, dtype, causal, bias_bytes)
+        also = ""
+        if dtype == torch.float32:
+            # the FMA kernels' own ceiling: fp32 FFMA
+            row["bound_ffma_ms"] = flash_bound(
+                base, b, sq, sk, hq, hk, d, dtype, causal, bias_bytes,
+                peak=FP32_FLOPS)[0]
+            also = (f" at 3xTF32's {TF32X3_FLOPS / 1e12:.0f} TFLOP/s, "
+                    f"{row['bound_ffma_ms']:.4f} ms at FFMA's "
+                    f"{FP32_FLOPS / 1e12:.0f}")
         rows[kind] = row
         log(f"  time flash_{kind} {name} {str(dtype)[6:]}: kernel "
             f"{row['ms']:.4f} ms (eager call {row['eager_ms']:.4f} ms), "
@@ -906,7 +934,7 @@ def _flash_timings(fa, gen, case, kinds, bias_as=None):
             f"{f' and dropout_p {rate}' if rate else ''} "
             f"{'fwd' if base == 'fwd' else 'bwd alone'} "
             f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} ms "
-            f"by {row['bound_by']}")
+            f"by {row['bound_by']}{also}")
     return rows
 
 
@@ -919,8 +947,9 @@ FMA_KINDS = ("fwd", "dq", "dkv")
 # train cell launches) and without dropout on the wgmma kernels, each
 # beside the bias-free kernels at the same shape and dropout (sdpa then
 # without the mask), and the "plane" bias class on the same mask
-# materialised as [B, 1, Sq, Sk]; the bias instantiations of the FMA
-# kernels at the BERT oracle's fp32 shape. (key, case, kinds[, bias_as])
+# materialised as [B, 1, Sq, Sk]; the FMA kernels at the three fp32
+# oracles' shapes (BERT's with its key bias: the bias instantiations).
+# (key, case, kinds[, bias_as])
 FLASH_TIMED = (("gpt2", "gpt2-train", FLASH_KINDS),
                ("llama7b", "llama7b", FLASH_KINDS),
                ("llama07b_train", "llama-0.7b-train", WGMMA_KINDS),
@@ -932,7 +961,9 @@ FLASH_TIMED = (("gpt2", "gpt2-train", FLASH_KINDS),
                ("bert_plane", "bert-keymask-dropout", WGMMA_KINDS, "plane"),
                ("bert_plane_no_dropout", "bert-large-keymask", WGMMA_KINDS,
                 "plane"),
-               ("bert_oracle_fp32", "bert-oracle-keymask-fp32", FMA_KINDS))
+               ("bert_oracle_fp32", "bert-oracle-keymask-fp32", FMA_KINDS),
+               ("gpt2_oracle_fp32", "gpt2-oracle-fp32", FMA_KINDS),
+               ("llama_oracle_fp32", "llama-oracle-fp32", FMA_KINDS))
 
 
 def phase_flash(fa, gen):
@@ -1519,6 +1550,8 @@ def _train_kernel_class(name: str) -> str:
     # first match wins: "fwd_kernel<" is also a substring of the CE and
     # LayerNorm forward kernels' names, so those come before it
     for key, cls in (("fwd_sm90_kernel", "flash fwd wgmma kernel"),
+                     ("dq_fp32_kernel", "flash dq kernel"),
+                     ("dkv_fp32_kernel", "flash dkv kernel"),
                      ("fwd_overlap_sm90_kernel", "flash fwd wgmma kernel"),
                      ("dq_sm90_kernel", "flash dq wgmma kernel"),
                      ("dkv_sm90_kernel", "flash dkv wgmma kernel"),
@@ -2205,8 +2238,10 @@ def _short_kernel(mangled: str) -> str:
     """``dq_sm90_kernel<64,0,1,0>`` for a mangled wgmma kernel name: its
     template arguments (the head dim it is built for, then dropout, bias
     and segments off or on, as the kernel declares them;
-    ``dkv128_sm90_kernel`` is built for D = 128 alone)."""
-    m = re.search(r"\d+([a-z]+(?:_[a-z]+)*?(?:128)?_sm90_kernel)I"
+    ``dkv128_sm90_kernel`` is built for D = 128 alone); likewise
+    ``dq_fp32_kernel<64,1>`` (head dim, Mask) for the fp32 dq and dkv of
+    the FMA route. Kernels templated on a type keep their mangled name."""
+    m = re.search(r"\d+([a-z]+(?:128)?(?:_[a-z][a-z0-9]*)*?_kernel)I"
                   r"((?:L[ib]\d+E)+)", mangled)
     if not m:
         return mangled
@@ -2219,7 +2254,9 @@ def ptxas_report(text: str, sass: str = "") -> dict:
     spill bytes (under ``_short_kernel``'s name), and with the library's
     SASS (``cuobjdump -sass``) its HGMMA instructions and the wgmma waits
     (``WARPGROUP.DEPBAR``) among them: one wait per HGMMA means ptxas
-    serialised the products. Also every warning line, names shortened."""
+    serialised the products; under ``ops`` its HMMA, FFMA and shared-load
+    (LDS) instructions, as they stand in the code. Also every warning
+    line, names shortened."""
     kernels, warnings, cur = [], [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -2237,7 +2274,7 @@ def ptxas_report(text: str, sass: str = "") -> dict:
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 cur["registers"] = int(m.group(1))
-    code, loads, top = {}, {}, {}
+    code, loads, top, ops = {}, {}, {}, {}
     for part in sass.split("Function : ")[1:]:
         name, body = part.split(None, 1)
         code[_short_kernel(name)] = (body.count("HGMMA"),
@@ -2248,11 +2285,14 @@ def ptxas_report(text: str, sass: str = "") -> dict:
         # launch's 168) where setmaxnreg gave the consumers more
         regs = [int(r) for r in re.findall(r"\bR(\d+)\b", body)]
         top[_short_kernel(name)] = max(regs, default=None)
+        ops[_short_kernel(name)] = {
+            op: len(re.findall(rf"\b{op}\b(?!M)", body))
+            for op in ("HMMA", "FFMA", "LDS")}
     for row in kernels:
         if row["kernel"] in code:
             row["hgmma"], row["wgmma_waits"] = code[row["kernel"]]
     return {"kernels": kernels, "warnings": warnings, "global_loads": loads,
-            "max_register": top}
+            "max_register": top, "ops": ops}
 
 
 def sass_of(lib) -> str:
@@ -2333,8 +2373,25 @@ def main(argv=None) -> int:
                 f"{row.get('wgmma_waits')} wgmma waits (products "
                 f"{'serialised' if serial else 'not serialised'})")
 
+    # the FMA route's fp32 dq and dkv (head dims up to 128): FFMA blocked
+    # in registers, no tensor-core product
+    fma_log = _build.BUILD_LOGS.get("flash_attention", "")
+    with open(os.path.join(args.out, "ptxas_flash_attention.txt"), "w") as f:
+        f.write(fma_log)
+    ptxas_fp32 = ptxas_report(fma_log, sass_of(
+        _build.library_path("flash_attention")))
+    for row in ptxas_fp32["kernels"]:
+        if "_fp32_kernel<" in row["kernel"]:
+            ops = ptxas_fp32["ops"].get(row["kernel"], {})
+            log(f"  ptxas {row['kernel']} (fp32 dq / dkv, FMA route): "
+                f"{row.get('registers')} registers, spill stores "
+                f"{row.get('spill_stores')} B, loads {row.get('spill_loads')}"
+                f" B; SASS {ops.get('HMMA')} HMMA, {ops.get('FFMA')} FFMA, "
+                f"{ops.get('LDS')} shared loads")
+
     report = {"card": card, "build": {"sources": built, "seconds": build_s,
-                                      "ptxas_sm90": ptxas}}
+                                      "ptxas_sm90": ptxas,
+                                      "ptxas_fp32": ptxas_fp32}}
     rows = {}
     if "kernels" in phases:
         log("kernels:")
@@ -2350,13 +2407,16 @@ def main(argv=None) -> int:
                 norms, gen)
         timed, report["flash_errors"], report["flash_tolerance_used"] = \
             phase_flash(fa, gen)
-        # the table's rows: the bias-free kernels at GPT-2's shape, their
-        # bias instantiations at BERT's (wgmma, with its dropout: the
-        # forward's, dq's and dkv's "keys" class, and the "plane" class on
-        # the mask materialised, which gives the same bits) and the BERT
-        # oracle's (FMA)
-        for kind in FLASH_KINDS:
+        # the table's rows: the bias-free wgmma kernels at GPT-2's shape and
+        # the FMA ones at its fp32 oracle's (the shape their launches run
+        # at), their bias instantiations at BERT's (wgmma, with its
+        # dropout: the forward's, dq's and dkv's "keys" class, and the
+        # "plane" class on the mask materialised, which gives the same
+        # bits) and the BERT oracle's (FMA)
+        for kind in WGMMA_KINDS:
             rows["flash_" + kind] = timed["gpt2"].pop(kind)
+        for kind in FMA_KINDS:
+            rows["flash_" + kind] = timed["gpt2_oracle_fp32"].pop(kind)
         for kind in WGMMA_KINDS:
             rows[f"flash_{kind}_keybias"] = timed["bert"].pop(kind)
             rows[f"flash_{kind}_bias"] = dict(

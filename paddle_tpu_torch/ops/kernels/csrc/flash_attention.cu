@@ -45,13 +45,21 @@
 // (CUDA cores, not tensor cores). D is zero-padded to DP = 64, 128 or 256.
 // Row max and row sums are shuffles across the 16 threads of a row.
 // bf16 calls with head dims up to 128 take the tensor-core forward, dq
-// and dkv of flash_attention_sm90.cu instead (`flash_route`); these
-// kernels serve fp32, wider heads and strides TMA cannot take. Both
-// sources share the dropout hash of flash_common.cuh.
+// and dkv of flash_attention_sm90.cu instead (`flash_route`); this file
+// serves fp32, wider heads and strides TMA cannot take. Here fwd_kernel
+// runs every forward, dq_kernel and dkv_kernel the bf16 calls and head
+// dims above 128, and fp32 dq and dkv up to D = 128 take dq_fp32_kernel /
+// dkv_fp32_kernel: the same sums in the same order (so the same bits),
+// with operands blocked in registers and fed by a cp.async ring.
+// Tensor-core products (3xTF32) cannot hold the fp32 contract's
+// tolerance, so fp32 stays on FFMA. Both sources share the dropout hash
+// of flash_common.cuh.
 #include "common.cuh"
 #include "flash_common.cuh"
 
 #include <math.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -584,6 +592,450 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// fp32 dq and dkv, head dims up to 128: FFMA blocked in registers, fed by a
+// cp.async ring
+// ---------------------------------------------------------------------------
+//
+// Every output entry is the same chain of fmaf as in dq_kernel / dkv_kernel
+// (and as cuBLAS's fp32 GEMM in the plain version): s and dP over d = 0 ..
+// DP - 1, dQ over the keys, dK and dV over the group's q rows, each in
+// ascending order from 0. So the results are those kernels' bits; only
+// who computes what, and how operands reach the registers, change.
+// Products on the tensor cores, even split into 3xTF32, round otherwise:
+// on an H100 they read several times FLASH_RTOL["bwd"][fp32] against the
+// plain version, where these chains read at most half of it
+// (`chip_ab.py`).
+//
+// - 256 threads as a 16 x 16 grid (tx, ty). Score products: rows
+//   4 ty .. + 3 (the same for the 16 threads of a half-warp: broadcast
+//   reads) by columns tx + 16 j (as the FFMA kernels), four d at a time:
+//   one LDS.128 per row and per column, 8 FFMA per shared load. Second
+//   products (dQ = dS K; dV = P^T dO, dK = dS^T Q): rows 4 ty .. + 3 by
+//   columns 4 tx .. + 3 (and + 64 at DP = 128), four keys or q rows at a
+//   time: 8 FFMA per shared load (10.7 at DP = 128). dq_kernel and
+//   dkv_kernel issue one shared load per 2 FFMA.
+// - Tiles are fp32 [rows][D zero-padded to DP = 64 or 128]. Those read
+//   along 16 rows at once (K and V in dq; Q and dO in dkv) are padded to
+//   DP + 4 floats a row, so the 16 reads fall on distinct banks; the
+//   others are read by broadcast and stay unpadded. cp.async copies 16
+//   bytes at a time where every row starts on a 16-byte boundary, else 4,
+//   into a ring of two stages: the next K/V tile (dq) or Q/dO tile (dkv)
+//   loads while the current one's products run. Loops step through the
+//   tiles with fixed offsets, so shared loads take immediate addresses.
+// - dq: 64-row tiles; dS takes the place of the consumed V stage. dkv: 64
+//   keys against q tiles of kDkvRows<DP> rows (64, and 32 at DP = 128,
+//   where two stages of 64 would not fit 227 KB). One block an SM: at two,
+//   128 registers a thread spill (`chip_ab.py` times both).
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// copy `bytes` (16 or 0: zero-fill) from global src to shared dst
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+// copy `bytes` (4 or 0: zero-fill)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [s0, s0 + ROWS) of one head of a [batch, S, H, D] fp32 tensor (base =
+// &t[b, 0, h, 0], row stride `stride`) into a [ROWS][LD] tile by cp.async,
+// zero past S and past D (up to DP); 16-byte copies when `vec`.
+template <int ROWS, int DP, int LD>
+__device__ __forceinline__ void load_tile_async(float* dst, const float* base,
+                                                size_t stride, int s0, int S,
+                                                int D, bool vec) {
+  if (vec) {
+    constexpr int CH = DP / 4;
+#pragma unroll
+    for (int it = 0; it < ROWS * CH / kThreads; ++it) {
+      const int i = it * kThreads + threadIdx.x;
+      const int r = i / CH, c = (i % CH) * 4, s = s0 + r;
+      const bool ok = s < S && c < D;
+      cp_async16(dst + r * LD + c,
+                 ok ? base + static_cast<size_t>(s) * stride + c : base,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int it = 0; it < ROWS * DP / kThreads; ++it) {
+      const int i = it * kThreads + threadIdx.x;
+      const int r = i / DP, c = i % DP, s = s0 + r;
+      const bool ok = s < S && c < D;
+      cp_async4(dst + r * LD + c,
+                ok ? base + static_cast<size_t>(s) * stride + c : base,
+                ok ? 4 : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Every row of the operands starts on a 16-byte boundary.
+__device__ __forceinline__ bool rows16(const void* a, const void* b,
+                                       const void* c, const void* d, int D) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(a) |
+                         reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(c) |
+                         reinterpret_cast<uintptr_t>(d);
+  return D % 4 == 0 && (bits & 15) == 0;
+}
+
+// The score products of a pass, two at once: acc0[i][j] += A0(row 4 ty + i,
+// d) * B0(row tx + 16 j, d) over d = 0 .. DP - 1 ascending (acc1 from A1,
+// B1 likewise); A tiles [.][LDA], B tiles [.][LDB].
+template <int DP, int LDA, int LDB, int NJ>
+__device__ __forceinline__ void score_products(
+    const float* A0, const float* B0, const float* A1, const float* B1,
+    float (&acc0)[4][NJ], float (&acc1)[4][NJ], int tx, int ty) {
+  const float* a0 = A0 + 4 * ty * LDA;
+  const float* a1 = A1 + 4 * ty * LDA;
+  const float* b0 = B0 + tx * LDB;
+  const float* b1 = B1 + tx * LDB;
+#pragma unroll 4
+  for (int d = 0; d < DP; d += 4) {
+    float4 x0[4], x1[4], y0[NJ], y1[NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x0[i] = ld4(a0 + i * LDA + d);
+      x1[i] = ld4(a1 + i * LDA + d);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      y0[j] = ld4(b0 + 16 * j * LDB + d);
+      y1[j] = ld4(b1 + 16 * j * LDB + d);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          acc0[i][j] = fmaf(at(x0[i], e), at(y0[j], e), acc0[i][j]);
+          acc1[i][j] = fmaf(at(x1[i], e), at(y1[j], e), acc1[i][j]);
+        }
+  }
+}
+
+// A second product: acc[i][4 h + e] += W(row 4 ty + i, c) * X(row c,
+// 64 h + 4 tx + e) over c = 0 .. NC - 1 ascending; W [.][LDW], X [NC][LDX].
+template <int DP, int NC, int LDW, int LDX>
+__device__ __forceinline__ void second_product(const float* W, const float* X,
+                                               float (&acc)[4][DP / 16],
+                                               int tx, int ty) {
+  constexpr int H = DP / 64;
+  const float* w = W + 4 * ty * LDW;
+  const float* x = X + 4 * tx;
+#pragma unroll 2
+  for (int c = 0; c < NC; c += 4) {
+    float4 wv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wv[i] = ld4(w + i * LDW + c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      float4 xv[H];
+#pragma unroll
+      for (int h = 0; h < H; ++h) xv[h] = ld4(x + (c + cc) * LDX + 64 * h);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < H; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][4 * h + e] = fmaf(at(wv[i], cc), at(xv[h], e), acc[i][4 * h + e]);
+    }
+  }
+}
+
+// acc (rows 4 ty + i, columns 64 h + 4 tx + e) times `mul` into rows
+// [s0, s0 + 64) of one head, rows below S and columns below D
+template <int DP>
+__device__ __forceinline__ void store_rows(float* base, size_t stride,
+                                           const float (&acc)[4][DP / 16],
+                                           float mul, int s0, int S, int D,
+                                           int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = s0 + 4 * ty + i;
+    if (r >= S) continue;
+#pragma unroll
+    for (int h = 0; h < DP / 64; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 64 * h + 4 * tx + e;
+        if (d < D) base[static_cast<size_t>(r) * stride + d] = acc[i][4 * h + e] * mul;
+      }
+  }
+}
+
+// dq: grid (nq, B*Hq), as dq_kernel
+template <int DP, bool MASK>
+__global__ void __launch_bounds__(kThreads)
+dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               float* __restrict__ dq, Dims dm, float scale, int causal,
+               Dropout dr, Mask mk) {
+  constexpr int BQ = 64, BK = 64, LK = DP + 4, SLD = BK + 4;
+  constexpr int KT = BK * LK;        // one K or V stage
+  extern __shared__ __align__(16) float smem16[];
+  float* Qs = smem16;                // [BQ][DP]
+  float* dOs = Qs + BQ * DP;         // [BQ][DP]
+  float* Ks = dOs + BQ * DP;         // [2][BK][LK]: the ring
+  float* Vs = Ks + 2 * KT;           // [2][BK][LK]; dS [BQ][SLD] once consumed
+  float* lse_s = Vs + 2 * KT;        // [BQ]
+  float* dl_s = lse_s + BQ;          // [BQ]
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int nq = (dm.Sq + BQ - 1) / BQ;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x);
+  const int bh = blockIdx.y;
+  const int b = bh / dm.Hq, h = bh % dm.Hq;
+  const int hk = h / (dm.Hq / dm.Hk);
+  const int q0 = qi * BQ;
+  const int offset = dm.Sk - dm.Sq;
+  const size_t qstride = static_cast<size_t>(dm.Hq) * dm.D;
+  const size_t kstride = static_cast<size_t>(dm.Hk) * dm.D;
+  const size_t qoff = (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
+  const float* kb = k + (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const float* vb = v + (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const uint32_t seed_bh =
+      dr.on ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+  const bool vec = rows16(q, k, v, dout, dm.D);
+
+  int nk = (dm.Sk + BK - 1) / BK;
+  if (causal) nk = causal_k_tiles<BQ, BK>(q0, offset, nk);
+  load_tile_async<BQ, DP, DP>(Qs, q + qoff, qstride, q0, dm.Sq, dm.D, vec);
+  load_tile_async<BQ, DP, DP>(dOs, dout + qoff, qstride, q0, dm.Sq, dm.D, vec);
+  if (nk > 0) {
+    load_tile_async<BK, DP, LK>(Ks, kb, kstride, 0, dm.Sk, dm.D, vec);
+    load_tile_async<BK, DP, LK>(Vs, vb, kstride, 0, dm.Sk, dm.D, vec);
+  }
+  cp_async_commit();
+  for (int r = threadIdx.x; r < BQ; r += kThreads) {
+    const int s = q0 + r;
+    const size_t idx = static_cast<size_t>(bh) * dm.Sq + s;
+    // as dq_kernel: a row that sees no key reads 0, a padded row +inf
+    const float ls = s < dm.Sq ? lse[idx] : INFINITY;
+    lse_s[r] = ls == -INFINITY ? 0.f : ls;
+    dl_s[r] = s < dm.Sq ? delta[idx] : 0.f;
+  }
+
+  float dqa[4][DP / 16] = {};
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    if (kt + 1 < nk) {
+      const int nxt = (kt + 1) & 1;
+      load_tile_async<BK, DP, LK>(Ks + nxt * KT, kb, kstride, k0 + BK, dm.Sk, dm.D, vec);
+      load_tile_async<BK, DP, LK>(Vs + nxt * KT, vb, kstride, k0 + BK, dm.Sk, dm.D, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this tile has landed
+    const float* Kt = Ks + (kt & 1) * KT;
+    float* Vt = Vs + (kt & 1) * KT;
+
+    float s[4][4] = {}, dp[4][4] = {};
+    score_products<DP, DP, LK, 4>(Qs, Kt, dOs, Vt, s, dp, tx, ty);
+
+    // ds in place of s, element by element as dq_kernel
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rl = 4 * ty + i, r = q0 + rl;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = k0 + tx + 16 * j;
+        float p;
+        if constexpr (MASK) {
+          p = 0.f;
+          if (visible(mk, dm, b, r, c, causal, offset))
+            p = mk.bias ? expf(biased(s[i][j], scale, mk, dm, b, h, r, c) - lse_s[rl])
+                        : expf(s[i][j] * scale - lse_s[rl]);
+        } else {
+          const bool ok = c < dm.Sk && (!causal || c <= r + offset);
+          p = ok ? expf(s[i][j] * scale - lse_s[rl]) : 0.f;
+        }
+        float dpv = dp[i][j];
+        if (dr.on) dpv = keep(seed_bh, r, c, dm.Sk, dr.thresh) ? dpv * dr.keep_scale : 0.f;
+        const float ds = p * (dpv - dl_s[rl]);
+        if constexpr (MASK)
+          if (mk.dbias && r < dm.Sq && c < dm.Sk)
+            mk.dbias[(static_cast<size_t>(bh) * dm.Sq + r) * dm.Sk + c] = ds;
+        s[i][j] = ds;
+      }
+    }
+    __syncthreads();  // V of this stage is consumed: dS takes its place
+    float* dSs = Vt;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dSs[(4 * ty + i) * SLD + tx + 16 * j] = s[i][j];
+    __syncthreads();
+
+    second_product<DP, BK, SLD, LK>(dSs, Kt, dqa, tx, ty);
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+
+  store_rows<DP>(dq + qoff, qstride, dqa, scale, q0, dm.Sq, dm.D, tx, ty);
+}
+
+// the q rows of a dkv_fp32_kernel tile
+template <int DP>
+constexpr int kDkvRows = DP == 64 ? 64 : 32;
+
+// dkv: grid (nk, B*Hk), as dkv_kernel, over q tiles of kDkvRows<DP> rows
+template <int DP, bool MASK>
+__global__ void __launch_bounds__(kThreads)
+dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                float* __restrict__ dk, float* __restrict__ dv, Dims dm,
+                float scale, int causal, Dropout dr, Mask mk) {
+  constexpr int BQ = kDkvRows<DP>, BK = 64, LQ = DP + 4, PLD = BQ + 4, NJ = BQ / 16;
+  constexpr int QT = BQ * LQ;        // one Q or dO stage
+  extern __shared__ __align__(16) float smem16[];
+  float* Ks = smem16;                // [BK][DP]
+  float* Vs = Ks + BK * DP;          // [BK][DP]
+  float* Qs = Vs + BK * DP;          // [2][BQ][LQ]: the ring
+  float* dOs = Qs + 2 * QT;          // [2][BQ][LQ]
+  float* Pt = dOs + 2 * QT;          // [BK][PLD]: p_v^T
+  float* dSt = Pt + BK * PLD;        // [BK][PLD]: ds^T
+  float* lse_s = dSt + BK * PLD;     // [2][BQ], as stored (0 past Sq)
+  float* dl_s = lse_s + 2 * BQ;      // [2][BQ]
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int kt = blockIdx.x;
+  const int bhk = blockIdx.y;
+  const int b = bhk / dm.Hk, hk = bhk % dm.Hk;
+  const int rep = dm.Hq / dm.Hk;
+  const int k0 = kt * BK;
+  const int offset = dm.Sk - dm.Sq;
+  const int nq = (dm.Sq + BQ - 1) / BQ;
+  const size_t qstride = static_cast<size_t>(dm.Hq) * dm.D;
+  const size_t kstride = static_cast<size_t>(dm.Hk) * dm.D;
+  const size_t koff = (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const bool vec = rows16(q, k, v, dout, dm.D);
+
+  // the q tiles qs .. nq - 1 of each of the group's rep heads see this k
+  // tile (causal: tile qi runs iff k0 <= q0 + BQ - 1 + offset), in
+  // dkv_kernel's order: heads outer, q tiles inner
+  int qs = 0;
+  if (causal)
+    while (qs < nq && k0 > qs * BQ + BQ - 1 + offset) ++qs;
+  const int per = nq - qs, total = rep * per;
+  // copy work item `it` (the group's q head it / per, q tile qs + it % per)
+  // into ring stage `st`
+  auto issue = [&](int it, int st) {
+    const int h = hk * rep + it / per, q0 = (qs + it % per) * BQ;
+    const size_t qoff = (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
+    load_tile_async<BQ, DP, LQ>(Qs + st * QT, q + qoff, qstride, q0, dm.Sq, dm.D,
+                                vec);
+    load_tile_async<BQ, DP, LQ>(dOs + st * QT, dout + qoff, qstride, q0, dm.Sq,
+                                dm.D, vec);
+    const size_t row0 = static_cast<size_t>(b * dm.Hq + h) * dm.Sq;
+    for (int r = threadIdx.x; r < BQ; r += kThreads) {
+      const bool ok = q0 + r < dm.Sq;
+      cp_async4(lse_s + st * BQ + r, ok ? lse + row0 + q0 + r : lse, ok ? 4 : 0);
+      cp_async4(dl_s + st * BQ + r, ok ? delta + row0 + q0 + r : delta,
+                ok ? 4 : 0);
+    }
+  };
+
+  load_tile_async<BK, DP, DP>(Ks, k + koff, kstride, k0, dm.Sk, dm.D, vec);
+  load_tile_async<BK, DP, DP>(Vs, v + koff, kstride, k0, dm.Sk, dm.D, vec);
+  if (total > 0) issue(0, 0);
+  cp_async_commit();
+
+  float dka[4][DP / 16] = {}, dva[4][DP / 16] = {};
+  for (int it = 0; it < total; ++it) {
+    const int h = hk * rep + it / per, q0 = (qs + it % per) * BQ;
+    const int bh = b * dm.Hq + h;
+    const uint32_t seed_bh =
+        dr.on ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+    if (it + 1 < total) {
+      issue(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this item has landed, and the previous Pt / dSt are consumed
+    const float* Qt = Qs + (it & 1) * QT;
+    const float* dOt = dOs + (it & 1) * QT;
+    const float* ls = lse_s + (it & 1) * BQ;
+    const float* dl = dl_s + (it & 1) * BQ;
+
+    // transposed score tile: st[i][j] = s(q row tx + 16 j, k row 4 ty + i)
+    float st[4][NJ] = {}, dpt[4][NJ] = {};
+    score_products<DP, DP, LQ, NJ>(Ks, Qt, Vs, dOt, st, dpt, tx, ty);
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int cl = 4 * ty + i, c = k0 + cl;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int rl = tx + 16 * j, r = q0 + rl;
+        // as dkv_kernel: a row that sees no key reads 0, a padded row +inf
+        const float lsv = r < dm.Sq ? (ls[rl] == -INFINITY ? 0.f : ls[rl]) : INFINITY;
+        float p;
+        if constexpr (MASK) {
+          p = 0.f;
+          if (visible(mk, dm, b, r, c, causal, offset))
+            p = mk.bias ? expf(biased(st[i][j], scale, mk, dm, b, h, r, c) - lsv)
+                        : expf(st[i][j] * scale - lsv);
+        } else {
+          const bool ok = c < dm.Sk && (!causal || c <= r + offset);
+          p = ok ? expf(st[i][j] * scale - lsv) : 0.f;
+        }
+        float pv = p, dpv = dpt[i][j];
+        if (dr.on) {
+          const bool kp = keep(seed_bh, r, c, dm.Sk, dr.thresh);
+          pv = kp ? p * dr.keep_scale : 0.f;
+          dpv = kp ? dpv * dr.keep_scale : 0.f;
+        }
+        Pt[cl * PLD + rl] = pv;
+        dSt[cl * PLD + rl] = p * (dpv - dl[rl]);
+      }
+    }
+    __syncthreads();
+
+    second_product<DP, BQ, PLD, LQ>(Pt, dOt, dva, tx, ty);
+    second_product<DP, BQ, PLD, LQ>(dSt, Qt, dka, tx, ty);
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+
+  store_rows<DP>(dk + koff, kstride, dka, scale, k0, dm.Sk, dm.D, tx, ty);
+  store_rows<DP>(dv + koff, kstride, dva, 1.f, k0, dm.Sk, dm.D, tx, ty);
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -608,6 +1060,23 @@ constexpr size_t dkv_smem() {
 
 enum class Pass { kFwd, kDq, kDkv };
 
+// dq_fp32_kernel: Q and dO, a ring of two K, V stages (rows padded to
+// DP + 4) and the row statistics; dkv_fp32_kernel: K and V, a ring of two
+// kDkvRows<DP>-row Q, dO stages (padded), P^T and dS^T ([64][kDkvRows + 4])
+// and the ring's row statistics
+template <int DP>
+constexpr size_t ring_smem(Pass pass) {
+  return sizeof(float) * (pass == Pass::kDq
+                              ? 2 * 64 * DP + 4 * 64 * (DP + 4) + 2 * 64
+                              : 2 * 64 * DP + 4 * kDkvRows<DP> * (DP + 4) +
+                                    2 * 64 * (kDkvRows<DP> + 4) + 4 * kDkvRows<DP>);
+}
+
+// fp32 dq and dkv up to DP = 128 take dq_fp32_kernel / dkv_fp32_kernel;
+// the forward, bf16 and DP = 256 the kernels above
+template <typename T, int DP>
+constexpr bool kRing = std::is_same<T, float>::value && DP <= 128;
+
 template <typename T, int DP>
 cudaError_t launch_pass(Pass pass, const Args& a, cudaStream_t s) {
   constexpr int BQ = Tile<DP>::BQ, BK = Tile<DP>::BK;
@@ -626,6 +1095,22 @@ cudaError_t launch_pass(Pass pass, const Args& a, cudaStream_t s) {
     if ((err = allow_smem(kern, smem, smem_set[0][mask])) != cudaSuccess) return err;
     kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
         q, k, v, static_cast<T*>(a.out), a.lse_out, a.dm, a.scale, a.causal, a.dr, a.mk);
+  } else if constexpr (kRing<T, DP>) {
+    if (pass == Pass::kDq) {
+      constexpr size_t smem = ring_smem<DP>(Pass::kDq);
+      auto kern = mask ? dq_fp32_kernel<DP, true> : dq_fp32_kernel<DP, false>;
+      if ((err = allow_smem(kern, smem, smem_set[1][mask])) != cudaSuccess) return err;
+      kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
+          q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.out), a.dm, a.scale, a.causal,
+          a.dr, a.mk);
+    } else {
+      constexpr size_t smem = ring_smem<DP>(Pass::kDkv);
+      auto kern = mask ? dkv_fp32_kernel<DP, true> : dkv_fp32_kernel<DP, false>;
+      if ((err = allow_smem(kern, smem, smem_set[2][mask])) != cudaSuccess) return err;
+      kern<<<dim3(nk, a.dm.B * a.dm.Hk), kThreads, smem, s>>>(
+          q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+          a.dm, a.scale, a.causal, a.dr, a.mk);
+    }
   } else if (pass == Pass::kDq) {
     constexpr size_t smem = dq_smem<DP>();
     auto kern = mask ? dq_kernel<T, DP, BQ, BK, true> : dq_kernel<T, DP, BQ, BK, false>;

@@ -1,6 +1,8 @@
 """Flash attention: the CUDA kernels ``csrc/flash_attention_sm90.cu``
 (forward, dq and dkv on the tensor cores) and ``csrc/flash_attention.cu``
-(forward, dq and dkv as fp32 FMA loops), and their plain PyTorch versions.
+(forward, dq and dkv as fp32 FMA loops; fp32 dq and dkv up to head dim
+128 blocked in registers behind a cp.async ring), and their plain PyTorch
+versions.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: the plain
 functions compute what its Pallas kernels ``_fwd_kernel``,
@@ -36,8 +38,10 @@ tensor runs the plain version; a CUDA tensor launches a kernel or raises.
 Which kernel is ``flash_route``'s choice, a documented split and not a
 fallback: bf16 operands with a head dim that is a multiple of 8 up to 128
 and 16-byte aligned take the wgmma kernels (TMA needs those strides and
-alignments), everything else (fp32, whose contract is exact fp32 where
-the tensor cores would give TF32; head dims above 128) the FMA kernels.
+alignments), everything else (fp32; head dims above 128) the FMA kernels.
+fp32 stays off the tensor cores: its contract is fp32 sums in the plain
+version's order, which TF32 products, even split into three passes
+(3xTF32), do not hold (PERF.md).
 Both routes take the bias (a strided fp32 view: broadcast dims are never
 materialised), the segment words and the dbias output. The wgmma
 forward, dq and dkv kernels take a bias in one of two classes,
@@ -465,7 +469,14 @@ def flash_route(dtype: torch.dtype, head_dim: int,
     ``WGMMA_MAX_HEAD_DIM`` (so the head stride ``D * 2`` and row stride
     ``H * D * 2`` bytes are multiples of 16, as TMA requires) and every
     operand address 16-byte aligned; ``"fma"`` (``csrc/flash_attention.cu``)
-    otherwise. A bias or segments do not enter the choice."""
+    otherwise. A bias or segments do not enter the choice. On the FMA
+    route fp32 dq and dkv with ``head_dim`` up to 128 run
+    ``dq_fp32_kernel`` / ``dkv_fp32_kernel`` (FFMA blocked in registers,
+    a cp.async ring), the forward, bf16 and wider heads the one-tile FFMA
+    kernels; all of them sum in the plain version's order, so in fp32
+    they give its bits wherever cuBLAS sums in that order too. fp32 never
+    takes the tensor cores: TF32 products, even as 3xTF32, miss the fp32
+    tolerance."""
     if (dtype == torch.bfloat16 and head_dim % 8 == 0
             and 0 < head_dim <= WGMMA_MAX_HEAD_DIM
             and all(a % 16 == 0 for a in addresses)):

@@ -391,8 +391,12 @@ def _operands(dtype, d, hq, hk, misaligned):
 def test_flash_route(dtype, d, misaligned, gqa):
     """bf16 with a head dim that is a multiple of 8 (so the head and row
     strides are multiples of 16 bytes) up to 128, 16-byte aligned, takes
-    the wgmma kernels; fp32 (exact fp32, not TF32), head dims above 128,
-    strides and addresses TMA cannot take the FMA kernels."""
+    the wgmma kernels; fp32, head dims above 128, strides and addresses
+    TMA cannot take the FMA kernels. fp32 stays off the tensor cores:
+    its products sum in fp32 in the plain version's order (at head dims up
+    to 128 in the register-blocked dq_fp32_kernel / dkv_fp32_kernel),
+    which TF32 products, even as 3xTF32, do not match within the fp32
+    tolerance (test_tf32_products_miss_the_fp32_backward_check)."""
     q, k, v = _operands(dtype, d, *gqa, misaligned)
     want = ("wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
             and not misaligned else "fma")
@@ -420,7 +424,8 @@ def _fake_library(name):
 @pytest.mark.parametrize("dtype,d,misaligned,entry", [
     (torch.bfloat16, 64, False, "sm90"), (torch.bfloat16, 96, False, "sm90"),
     (torch.bfloat16, 64, True, "fma"), (torch.bfloat16, 160, False, "fma"),
-    (torch.float32, 64, False, "fma")])
+    (torch.float32, 64, False, "fma"), (torch.float32, 128, False, "fma"),
+    (torch.float32, 160, False, "fma")])
 def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
                                                          d, misaligned,
                                                          entry):
@@ -428,7 +433,9 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
     ``_build._SIGNATURES`` (the wgmma entries without a dtype code, with
     the bias class before the stream: 0 without a bias) and counts on its
     own kernel's counter; dq follows the route like the forward and
-    dkv."""
+    dkv. fp32 reaches ``flash_dq`` / ``flash_dkv`` with the fp32 code at
+    every head dim: the C entry picks the register-blocked kernels up to
+    128 (D = 64, 128) and the one-tile FFMA ones above (D = 160)."""
     libs = {n: _fake_library(n)
             for n in ("flash_attention", "flash_attention_sm90")}
     monkeypatch.setattr(_build, "load", libs.__getitem__)
@@ -576,6 +583,113 @@ def test_wgmma_tiling_passes_the_chip_check(sq, sk, causal):
         cs.check_close("lse", lse_bad, lse_ref, cs.LSE_RTOL, quiet=True)
 
 
+def _tf32(x):
+    """fp32 rounded to TF32 (10 stored mantissa bits; to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32``), in fp32."""
+    u = x.contiguous().view(torch.int32)
+    finite = (u & 0x7F800000) != 0x7F800000
+    return (torch.where(finite, u + 0x1000, u) & -0x2000).view(torch.float32)
+
+
+def _matmul_tf32(passes):
+    """torch.matmul on TF32 operands, each product exact and summed in
+    fp32: one pass (big.big), or the 3xTF32 split, x = big + small with
+    both rounded to TF32, as small.big + big.small + big.big."""
+    mm = torch.matmul
+
+    def matmul(a, b):
+        ab, bb = _tf32(a), _tf32(b)
+        if passes == 1:
+            return mm(ab, bb)
+        return mm(_tf32(a - ab), bb) + mm(ab, _tf32(b - bb)) + mm(ab, bb)
+    return matmul
+
+
+def _matmul_fma_chain(a, b):
+    """torch.matmul as one chain of fp32 FMAs per output along the
+    reduction index, ascending from 0 (each step exact in fp64, rounded
+    once to fp32): the order of dq_fp32_kernel / dkv_fp32_kernel."""
+    a64, b64 = a.double(), b.double()
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    for i in range(a.shape[-1]):
+        acc = (acc.double() + a64[..., :, i:i + 1] * b64[..., i:i + 1, :]
+               ).float()
+    return acc
+
+
+_ROUNDING_CASES = {
+    "causal": dict(hq=2, hk=2, causal=True),
+    "key-bias": dict(hq=2, hk=2, causal=False, bias="keys"),
+    "gqa-4/2": dict(hq=4, hk=2, causal=True),
+    "dropout": dict(hq=2, hk=2, causal=True, rate=0.1),
+    "full-bias-dbias": dict(hq=2, hk=1, causal=True, bias="full")}
+
+
+@pytest.mark.parametrize("name", list(_ROUNDING_CASES))
+def test_tf32_products_miss_the_fp32_backward_check(monkeypatch, name):
+    """chip_smoke.py's fp32 backward check (FLASH_RTOL["bwd"][fp32] and
+    DBIAS_RTOL[fp32], unchanged) against the plain dq / dkv with every
+    product emulated three ways on the same fp32 inputs (B1 S128 D64):
+    as the chain of fp32 FMAs, ascending, that dq_fp32_kernel /
+    dkv_fp32_kernel run, dq, dk, dv and dbias pass (here bit for bit);
+    with one TF32 pass each fails by orders of magnitude; split as
+    3xTF32, the worst of dq, dk and dv uses a quarter of the tolerance or
+    more (0.50-1.49 here) even with exact products and fp32 sums, and
+    dbias (ds itself, where dP - delta cancels) fails. On an H100 the
+    3xTF32 kernels read several times the tolerance (chip_ab.py): so fp32
+    dq and dkv stay on FFMA."""
+    cs = _chip_smoke()
+    c = _ROUNDING_CASES[name]
+    rng = np.random.RandomState(0)
+    b, s, d = 1, 128, 64
+    mk = lambda h: torch.from_numpy(  # noqa: E731
+        rng.standard_normal((b, s, h, d)).astype(np.float32))
+    q, do, k, v = mk(c["hq"]), mk(c["hq"]), mk(c["hk"]), mk(c["hk"])
+    bias = None
+    if c.get("bias") == "keys":
+        bias = torch.where(torch.arange(s) < 100, 0.0, -1e9).reshape(
+            1, 1, 1, s)
+    elif c.get("bias") == "full":
+        bias = torch.from_numpy(0.5 * rng.standard_normal(
+            (b, c["hq"], s, s)).astype(np.float32))
+    dbias = c.get("bias") == "full"
+    args = (c["causal"], 1.0 / math.sqrt(d), c.get("rate", 0.0),
+            torch.tensor([1234], dtype=torch.int32), bias, None)
+    out, lse = tfa.flash_fwd_plain(q, k, v, *args)
+    delta = (do * out).sum(-1).transpose(1, 2).contiguous()
+
+    def backward():
+        dq = tfa.flash_dq_plain(q, k, v, do, lse, delta, *args, dbias)
+        dq, db = dq if dbias else (dq, None)
+        dk, dv = tfa.flash_dkv_plain(q, k, v, do, lse, delta, *args)
+        return dict(dq=dq, dk=dk, dv=dv, **({"dbias": db} if dbias else {}))
+
+    ref = backward()
+    rtol = dict(dq=cs.FLASH_RTOL["bwd"][torch.float32],
+                dk=cs.FLASH_RTOL["bwd"][torch.float32],
+                dv=cs.FLASH_RTOL["bwd"][torch.float32],
+                dbias=cs.DBIAS_RTOL[torch.float32])
+    got = {}
+    for way, matmul in (("fma", _matmul_fma_chain), ("tf32", _matmul_tf32(1)),
+                        ("3xtf32", _matmul_tf32(3))):
+        with monkeypatch.context() as m:
+            m.setattr(torch, "matmul", matmul)
+            got[way] = backward()
+    for key, want in ref.items():
+        cs.check_close(key, got["fma"][key], want, rtol[key], quiet=True)
+        with pytest.raises(AssertionError):
+            cs.check_close(key, got["tf32"][key], want, rtol[key],
+                           quiet=True)
+    used = {key: cs._tolerance_share(key, got["3xtf32"][key], want,
+                                     rtol[key])[1]
+            for key, want in ref.items()}
+    assert max(used["dq"], used["dk"], used["dv"]) > 0.25, used
+    if dbias:
+        with pytest.raises(AssertionError):
+            cs.check_close("dbias", got["3xtf32"]["dbias"], ref["dbias"],
+                           rtol["dbias"], quiet=True)
+
+
 def _wgmma_dq(q, k, v, do, lse, delta, scale, causal, block=64,
               mask_tail=True, scaled=True):
     """The wgmma dq's arithmetic, in torch: k tiles of ``block`` keys, K
@@ -711,6 +825,82 @@ def test_ptxas_report_reads_the_highest_register_of_each_kernel():
         "fwd_overlap_sm90_kernel<128>", "fwd_overlap_sm90_kernel<64>"]
 
 
+def test_ptxas_report_counts_the_fp32_kernels_instructions():
+    """The build report names the FMA route's fp32 dq and dkv by head dim
+    and Mask, and counts from their SASS the HMMA, FFMA and shared-load
+    instructions (LDS of any width; LDSM, a matrix load, apart). The
+    one-tile FFMA kernels, templated on a type, keep their mangled
+    name."""
+    cs = _chip_smoke()
+    ns = "_ZN51_GLOBAL__N__e00e0efa_18_flash_attention_cu_21afe640"
+    dq = f"{ns}14dq_fp32_kernelILi64ELb1EEEvPKfS2_S2_"
+    dkv = f"{ns}15dkv_fp32_kernelILi128ELb0EEEvPKfS2_S2_"
+    log = (f"ptxas info    : Compiling entry function '{dq}' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 238 registers, used 1 barriers\n"
+           f"ptxas info    : Compiling entry function '{dkv}' for 'sm_90a'\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 244 registers, used 1 barriers\n")
+    sass = (f"\t\tFunction : {dq}\n FFMA R1, R2, R3, R1 ;\n LDS.128 R4, "
+            "[R2+0x10] ;\n LDSM.16.M88.4 R8, [R3] ;\n FFMA R5, R6, R7, R5 ;"
+            f"\n\t\tFunction : {dkv}\n LDS R1, [R2] ;\n LDS.64 R2, [R3] "
+            ";\n FFMA R9, R10, R11, R9 ;\n")
+    rep = cs.ptxas_report(log, sass)
+    assert [(r["kernel"], r["registers"], r["spill_stores"])
+            for r in rep["kernels"]] == [("dq_fp32_kernel<64,1>", 238, 0),
+                                         ("dkv_fp32_kernel<128,0>", 244, 0)]
+    assert rep["ops"] == {
+        "dq_fp32_kernel<64,1>": {"HMMA": 0, "FFMA": 2, "LDS": 1},
+        "dkv_fp32_kernel<128,0>": {"HMMA": 0, "FFMA": 1, "LDS": 2}}
+    fwd = f"{ns}10fwd_kernelIfLi64ELi64ELi64ELb0EEEvPKT_"
+    assert cs._short_kernel(fwd) == fwd
+
+
+def test_fp32_flash_bound_takes_products_at_3xtf32_beside_ffma():
+    """chip_smoke.py's flash bound takes fp32 products at 3xTF32's
+    495 / 3 TFLOP/s, the fastest product of fp32 operands the card has (and
+    sdpa's), so no fp32 kernel can read above 100 % of it; the FMA
+    kernels' own ceiling, FFMA's 67 TFLOP/s, on request. At the BERT
+    oracle's shape (B2 S512 H16 D64 fp32, its [2, 1, 1, 512] key bias) dq
+    does 6 D flops a pair, 3.22 GFLOP: 0.0195 ms at 165 TFLOP/s, 0.0481 at
+    67, both bound by operations."""
+    cs = _chip_smoke()
+    shape = ("dq", 2, 512, 512, 16, 16, 64, torch.float32, False, 2 * 512 * 4)
+    flops = 6 * 64 * 2 * 16 * 512 * 512
+    ms, by = cs.flash_bound(*shape)
+    assert by == "operations"
+    assert ms == pytest.approx(flops / (495e12 / 3) * 1e3)
+    ms_ffma, by_ffma = cs.flash_bound(*shape, peak=cs.FP32_FLOPS)
+    assert by_ffma == "operations"
+    assert ms_ffma == pytest.approx(flops / 67e12 * 1e3)
+    assert (round(ms, 4), round(ms_ffma, 4)) == (0.0195, 0.0481)
+
+
+def test_fp32_oracle_attention_is_checked_and_timed():
+    """chip_smoke.py holds and times the FMA route at the attention of the
+    GPT-2 and Llama fp32 oracles, beside BERT's: one causal row of 1024
+    tokens with GPT-2 small's heads (12 of 64) and the 0.7B Llama's (16 of
+    128, no GQA), the shapes their dq and dkv launches run at."""
+    from paddle_tpu_torch.models import gpt2_small
+    cs = _chip_smoke()
+    gpt, llama = gpt2_small(), cs._llama_cfg(num_layers=2)
+    cases = {c[0]: c[:10] for c in cs.FLASH_CASES}
+    assert cases["gpt2-oracle-fp32"] == (
+        "gpt2-oracle-fp32", 1, gpt.max_position_embeddings,
+        gpt.max_position_embeddings, gpt.num_heads, gpt.num_heads,
+        gpt.hidden_size // gpt.num_heads, torch.float32, True, 0.0)
+    assert cases["llama-oracle-fp32"] == (
+        "llama-oracle-fp32", 1, 1024, 1024, llama.num_heads,
+        llama.num_kv_heads, llama.hidden_size // llama.num_heads,
+        torch.float32, True, 0.0)
+    timed = {t[0]: t[1:] for t in cs.FLASH_TIMED}
+    for key, case in (("bert_oracle_fp32", "bert-oracle-keymask-fp32"),
+                      ("gpt2_oracle_fp32", "gpt2-oracle-fp32"),
+                      ("llama_oracle_fp32", "llama-oracle-fp32")):
+        assert timed[key] == (case, cs.FMA_KINDS)
+        assert tfa.flash_route(torch.float32, cases[case][6]) == "fma"
+
+
 @pytest.mark.parametrize("name,cls", [
     ("void (anonymous namespace)::fwd_sm90_kernel<128, 0, false>(...)",
      "flash fwd wgmma kernel"),
@@ -725,6 +915,10 @@ def test_ptxas_report_reads_the_highest_register_of_each_kernel():
     ("void (anonymous namespace)::softmax_xent_fwd_kernel<1>(...)",
      "CE fwd kernel"),
     ("void (anonymous namespace)::dkv_kernel<float, 0>(...)",
+     "flash dkv kernel"),
+    ("void (anonymous namespace)::dq_fp32_kernel<64, true>(...)",
+     "flash dq kernel"),
+    ("void (anonymous namespace)::dkv_fp32_kernel<128, false>(...)",
      "flash dkv kernel")])
 def test_train_profile_class_of_each_kernel(name, cls):
     """chip_smoke.py's train-step breakdown puts each flash kernel, the
