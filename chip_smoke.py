@@ -13,8 +13,9 @@ Phases, each fatal on failure:
    nvcc for sm_90a (one nvcc per source, in parallel), timed; ptxas's
    registers, spills and warnings for each tensor-core flash kernel, and
    its SASS's HGMMAs, wgmma waits and global loads; for the FMA route's
-   fp32 dq and dkv (``dq_fp32_kernel`` / ``dkv_fp32_kernel``) registers,
-   spills and the SASS's HMMA, FFMA and shared-load instructions.
+   fp32 forward, dq and dkv (``fwd_fp32_kernel``, ``dq_fp32_kernel``,
+   ``dkv_fp32_kernel``) registers, spills and the SASS's HMMA, FFMA and
+   shared-load instructions.
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (RMSNorm forward, and its backward from the
    kernel's statistic, at decode's rows 1-8 and 13, which take its
@@ -24,7 +25,8 @@ Phases, each fatal on failure:
    routes, wgmma and FMA, at GPT-2's, Llama-2 7B's and the Llama train
    cell's (B8 S2048 H16 D128) training shapes, the fp32 attention of the
    GPT-2, BERT and Llama oracles (FMA), GQA, padded lengths, rows
-   that see no key, a single query, head dims of 32, 96 and 160, and
+   that see no key, a single query, head dims of 32, 50 (fp32, rows off
+   16-byte boundaries), 96 and 160, and
    dropout (also at D = 128), whose keep-mask must match exactly in fp32
    and bf16; with an additive bias: BERT-large's key mask, a full bias
    whose dbias the dq kernels emit, a broadcast one with dropout, rows
@@ -606,8 +608,8 @@ FLASH_CASES = [
     ("bert-oracle-keymask-fp32", 2, 512, 512, 16, 16, 64, torch.float32,
      False, 0.0, {"bias": "keymask"}),
     # the attention of the GPT-2 and Llama fp32 oracles (one 1024-token
-    # row, causal, no bias; D 64 and 128), whose dq and dkv take the FMA
-    # route's register-blocked fp32 kernels
+    # row, causal, no bias; D 64 and 128), whose forward, dq and dkv take
+    # the FMA route's register-blocked fp32 kernels
     ("gpt2-oracle-fp32", 1, 1024, 1024, 12, 12, 64, torch.float32, True,
      0.0),
     ("llama-oracle-fp32", 1, 1024, 1024, 16, 16, 128, torch.float32, True,
@@ -635,6 +637,10 @@ FLASH_CASES = [
      0.1, {"bias": "keymask"}),
     ("keymask-one-query", 2, 1, 300, 4, 2, 64, torch.bfloat16, True, 0.0,
      {"bias": "keymask-contiguous"}),
+    # fp32 with a head dim that is not a multiple of 4: no row starts on a
+    # 16-byte boundary, so the FMA route's fp32 forward, dq and dkv copy
+    # their tiles by 4-byte cp.async (ragged keys, causal, GQA)
+    ("d50-ragged-fp32", 2, 200, 333, 4, 2, 50, torch.float32, True, 0.0),
 ]
 INF_ROWS = (0, 7, 100)                  # the rows "inf-rows" hides
 # entry-wise (check_close), 2-5x the most the kernels needed on the card
@@ -1550,6 +1556,7 @@ def _train_kernel_class(name: str) -> str:
     # first match wins: "fwd_kernel<" is also a substring of the CE and
     # LayerNorm forward kernels' names, so those come before it
     for key, cls in (("fwd_sm90_kernel", "flash fwd wgmma kernel"),
+                     ("fwd_fp32_kernel", "flash fwd kernel"),
                      ("dq_fp32_kernel", "flash dq kernel"),
                      ("dkv_fp32_kernel", "flash dkv kernel"),
                      ("fwd_overlap_sm90_kernel", "flash fwd wgmma kernel"),
@@ -2239,8 +2246,8 @@ def _short_kernel(mangled: str) -> str:
     template arguments (the head dim it is built for, then dropout, bias
     and segments off or on, as the kernel declares them;
     ``dkv128_sm90_kernel`` is built for D = 128 alone); likewise
-    ``dq_fp32_kernel<64,1>`` (head dim, Mask) for the fp32 dq and dkv of
-    the FMA route. Kernels templated on a type keep their mangled name."""
+    ``fwd_fp32_kernel<64,1>`` (head dim, Mask) for the fp32 forward, dq
+    and dkv of the FMA route. Kernels templated on a type keep their mangled name."""
     m = re.search(r"\d+([a-z]+(?:128)?(?:_[a-z][a-z0-9]*)*?_kernel)I"
                   r"((?:L[ib]\d+E)+)", mangled)
     if not m:
@@ -2373,8 +2380,8 @@ def main(argv=None) -> int:
                 f"{row.get('wgmma_waits')} wgmma waits (products "
                 f"{'serialised' if serial else 'not serialised'})")
 
-    # the FMA route's fp32 dq and dkv (head dims up to 128): FFMA blocked
-    # in registers, no tensor-core product
+    # the FMA route's fp32 forward, dq and dkv (head dims up to 128): FFMA
+    # blocked in registers, no tensor-core product
     fma_log = _build.BUILD_LOGS.get("flash_attention", "")
     with open(os.path.join(args.out, "ptxas_flash_attention.txt"), "w") as f:
         f.write(fma_log)
@@ -2383,7 +2390,8 @@ def main(argv=None) -> int:
     for row in ptxas_fp32["kernels"]:
         if "_fp32_kernel<" in row["kernel"]:
             ops = ptxas_fp32["ops"].get(row["kernel"], {})
-            log(f"  ptxas {row['kernel']} (fp32 dq / dkv, FMA route): "
+            log(f"  ptxas {row['kernel']} (fp32 forward / dq / dkv, FMA "
+                f"route): "
                 f"{row.get('registers')} registers, spill stores "
                 f"{row.get('spill_stores')} B, loads {row.get('spill_loads')}"
                 f" B; SASS {ops.get('HMMA')} HMMA, {ops.get('FFMA')} FFMA, "

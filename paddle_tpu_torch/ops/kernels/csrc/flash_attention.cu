@@ -46,9 +46,9 @@
 // Row max and row sums are shuffles across the 16 threads of a row.
 // bf16 calls with head dims up to 128 take the tensor-core forward, dq
 // and dkv of flash_attention_sm90.cu instead (`flash_route`); this file
-// serves fp32, wider heads and strides TMA cannot take. Here fwd_kernel
-// runs every forward, dq_kernel and dkv_kernel the bf16 calls and head
-// dims above 128, and fp32 dq and dkv up to D = 128 take dq_fp32_kernel /
+// serves fp32, wider heads and strides TMA cannot take. Here fwd_kernel,
+// dq_kernel and dkv_kernel run the bf16 calls and head dims above 128,
+// and fp32 up to D = 128 takes fwd_fp32_kernel, dq_fp32_kernel and
 // dkv_fp32_kernel: the same sums in the same order (so the same bits),
 // with operands blocked in registers and fed by a cp.async ring.
 // Tensor-core products (3xTF32) cannot hold the fp32 contract's
@@ -791,6 +791,201 @@ __device__ __forceinline__ void store_rows(float* base, size_t stride,
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 forward, head dims up to 128: FFMA blocked in registers, fed by a
+// cp.async ring
+// ---------------------------------------------------------------------------
+//
+// fwd_kernel's sums in fwd_kernel's order, so its bits: s over d = 0 ..
+// DP - 1 ascending (rows 4 ty + i by columns tx + 16 j, as fwd_kernel maps
+// them), the row max and sum over the same 16 lanes, acc *= alpha, then
+// P.V over the tile's keys ascending (second_product), out = acc / l.
+// - Q [64][DP] unpadded, read by broadcast; K and V in a two-stage ring of
+//   [64][DP + 4] rows, the next tile copied while this one's products run;
+//   P [64][64 + 4] in a buffer of its own. A tile takes two barriers: one
+//   after its stage lands (every thread is then past the previous tile, so
+//   the other stage and P are free), one after P is written.
+// - One block of 8 warps an SM: at two (DP = 64, 101 KB of shared memory
+//   each) the loops spill at 128 registers and the causal shapes ran
+//   slower (`chip_ab.py`).
+// - Blocks take q tiles longest first across the whole grid (every head's
+//   last tile, then every head's next), so under causal the longest
+//   chains of key tiles start first.
+
+// One score product: acc[i][j] += A(row 4 ty + i, d) * B(row tx + 16 j, d)
+// over d = 0 .. DP - 1 ascending (score_products' mapping and order)
+template <int DP, int LDA, int LDB, int NJ>
+__device__ __forceinline__ void score_product(const float* A, const float* B,
+                                              float (&acc)[4][NJ], int tx,
+                                              int ty) {
+  const float* a = A + 4 * ty * LDA;
+  const float* bb = B + tx * LDB;
+#pragma unroll 4
+  for (int d = 0; d < DP; d += 4) {
+    float4 x[4], y[NJ];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = ld4(a + i * LDA + d);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) y[j] = ld4(bb + 16 * j * LDB + d);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          acc[i][j] = fmaf(at(x[i], e), at(y[j], e), acc[i][j]);
+  }
+}
+
+// forward: grid (nq, B*Hq), as fwd_kernel
+template <int DP, bool MASK>
+__global__ void __launch_bounds__(kThreads)
+fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ out,
+                float* __restrict__ lse, Dims dm, float scale, int causal,
+                Dropout dr, Mask mk) {
+  constexpr int BQ = 64, BK = 64, LK = DP + 4, PLD = BK + 4;
+  constexpr int KT = BK * LK;        // one K or V stage
+  extern __shared__ __align__(16) float smem16[];
+  float* Qs = smem16;                // [BQ][DP]
+  float* Ks = Qs + BQ * DP;          // [2][BK][LK]: the ring
+  float* Vs = Ks + 2 * KT;           // [2][BK][LK]
+  float* Ps = Vs + 2 * KT;           // [BQ][PLD]
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  // block n of the grid (x fastest) takes q tile nq - 1 - n / (B*Hq) of
+  // head n % (B*Hq)
+  const int nq = gridDim.x;
+  const int n = blockIdx.y * gridDim.x + blockIdx.x;
+  const int qi = nq - 1 - n / static_cast<int>(gridDim.y);
+  const int bh = n % static_cast<int>(gridDim.y);
+  const int b = bh / dm.Hq, h = bh % dm.Hq;
+  const int hk = h / (dm.Hq / dm.Hk);
+  const int q0 = qi * BQ;
+  const int offset = dm.Sk - dm.Sq;
+  const size_t qstride = static_cast<size_t>(dm.Hq) * dm.D;
+  const size_t kstride = static_cast<size_t>(dm.Hk) * dm.D;
+  const size_t qoff = (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
+  const float* kb = k + (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const float* vb = v + (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const uint32_t seed_bh =
+      dr.on ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+  const bool vec = rows16(q, k, v, out, dm.D);
+
+  int nk = (dm.Sk + BK - 1) / BK;
+  if (causal) nk = causal_k_tiles<BQ, BK>(q0, offset, nk);
+  load_tile_async<BQ, DP, DP>(Qs, q + qoff, qstride, q0, dm.Sq, dm.D, vec);
+  if (nk > 0) {
+    load_tile_async<BK, DP, LK>(Ks, kb, kstride, 0, dm.Sk, dm.D, vec);
+    load_tile_async<BK, DP, LK>(Vs, vb, kstride, 0, dm.Sk, dm.D, vec);
+  }
+  cp_async_commit();
+
+  // the bias row of each of this thread's q rows (bias_at less the key
+  // term); a row past Sq reads row Sq - 1, and is never stored
+  float m[4], l[4], acc[4][DP / 16] = {};
+  const float* brow[4] = {};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    if (MASK && mk.bias)
+      brow[i] = mk.bias + b * mk.sb + h * mk.sh +
+                static_cast<long long>(min(q0 + 4 * ty + i, dm.Sq - 1)) * mk.sq;
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile has landed; the other stage and P are consumed
+    if (kt + 1 < nk) {
+      const int nxt = (kt + 1) & 1;
+      load_tile_async<BK, DP, LK>(Ks + nxt * KT, kb, kstride, k0 + BK, dm.Sk, dm.D, vec);
+      load_tile_async<BK, DP, LK>(Vs + nxt * KT, vb, kstride, k0 + BK, dm.Sk, dm.D, vec);
+      cp_async_commit();
+    }
+    const float* Kt = Ks + (kt & 1) * KT;
+    const float* Vt = Vs + (kt & 1) * KT;
+
+    // this tile's bias, loaded ahead of the products (a key past Sk reads
+    // key Sk - 1, and is hidden)
+    float bv[4][4] = {};
+    if (MASK && mk.bias)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bv[i][j] = brow[i][min(k0 + tx + 16 * j, dm.Sk - 1) * mk.sk];
+
+    float s[4][4] = {};
+    score_product<DP, DP, LK, 4>(Qs, Kt, s, tx, ty);
+
+    // the online softmax, as fwd_kernel (the bias added in biased()'s
+    // order)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rl = 4 * ty + i, r = q0 + rl;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = k0 + tx + 16 * j;
+        if constexpr (MASK) {
+          const bool ok = visible(mk, dm, b, r, c, causal, offset);
+          const float x = mk.bias ? __fadd_rn(__fmul_rn(s[i][j], scale), bv[i][j])
+                                  : s[i][j] * scale;
+          s[i][j] = ok ? x : -INFINITY;
+        } else {
+          const bool ok = c < dm.Sk && (!causal || c <= r + offset);
+          s[i][j] = ok ? s[i][j] * scale : -INFINITY;
+        }
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = row_max16(mx);
+      const float m_new = fmaxf(m[i], mx);
+      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m[i] - m_safe);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = k0 + tx + 16 * j;
+        const float p = expf(s[i][j] - m_safe);
+        rs += p;
+        float pv = p;
+        if (dr.on) pv = keep(seed_bh, r, c, dm.Sk, dr.thresh) ? p * dr.keep_scale : 0.f;
+        Ps[rl * PLD + tx + 16 * j] = pv;
+      }
+      l[i] = alpha * l[i] + row_sum16(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < DP / 16; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();  // P is whole
+
+    second_product<DP, BK, PLD, LK>(Ps, Vt, acc, tx, ty);
+  }
+  cp_async_wait<0>();
+
+  // as fwd_kernel: a division, out = 0 and lse = -inf where no key is seen
+  float* ob = out + qoff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + 4 * ty + i;
+    if (r >= dm.Sq) continue;
+    const float li = l[i];
+#pragma unroll
+    for (int hh = 0; hh < DP / 64; ++hh)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = 64 * hh + 4 * tx + e;
+        if (d < dm.D)
+          ob[static_cast<size_t>(r) * qstride + d] =
+              li > 0.f ? acc[i][4 * hh + e] / li : 0.f;
+      }
+    if (tx == 0)
+      lse[static_cast<size_t>(bh) * dm.Sq + r] =
+          li > 0.f ? m[i] + logf(fmaxf(li, 1e-38f)) : -INFINITY;
+  }
+}
+
 // dq: grid (nq, B*Hq), as dq_kernel
 template <int DP, bool MASK>
 __global__ void __launch_bounds__(kThreads)
@@ -1072,8 +1267,15 @@ constexpr size_t ring_smem(Pass pass) {
                                     2 * 64 * (kDkvRows<DP> + 4) + 4 * kDkvRows<DP>);
 }
 
-// fp32 dq and dkv up to DP = 128 take dq_fp32_kernel / dkv_fp32_kernel;
-// the forward, bf16 and DP = 256 the kernels above
+// fwd_fp32_kernel: Q, a ring of two K, V stages (rows padded to DP + 4)
+// and P ([64][64 + 4])
+template <int DP>
+constexpr size_t fwd_ring_smem() {
+  return sizeof(float) * (64 * DP + 4 * 64 * (DP + 4) + 64 * (64 + 4));
+}
+
+// fp32 up to DP = 128 takes fwd_fp32_kernel, dq_fp32_kernel and
+// dkv_fp32_kernel; bf16 and DP = 256 the one-tile kernels
 template <typename T, int DP>
 constexpr bool kRing = std::is_same<T, float>::value && DP <= 128;
 
@@ -1090,11 +1292,19 @@ cudaError_t launch_pass(Pass pass, const Args& a, cudaStream_t s) {
   const bool mask = a.mk.bias || a.mk.qseg || a.mk.dbias;
   cudaError_t err;
   if (pass == Pass::kFwd) {
-    constexpr size_t smem = fwd_smem<DP>();
-    auto kern = mask ? fwd_kernel<T, DP, BQ, BK, true> : fwd_kernel<T, DP, BQ, BK, false>;
-    if ((err = allow_smem(kern, smem, smem_set[0][mask])) != cudaSuccess) return err;
-    kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
-        q, k, v, static_cast<T*>(a.out), a.lse_out, a.dm, a.scale, a.causal, a.dr, a.mk);
+    if constexpr (kRing<T, DP>) {
+      constexpr size_t smem = fwd_ring_smem<DP>();
+      auto kern = mask ? fwd_fp32_kernel<DP, true> : fwd_fp32_kernel<DP, false>;
+      if ((err = allow_smem(kern, smem, smem_set[0][mask])) != cudaSuccess) return err;
+      kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
+          q, k, v, static_cast<T*>(a.out), a.lse_out, a.dm, a.scale, a.causal, a.dr, a.mk);
+    } else {
+      constexpr size_t smem = fwd_smem<DP>();
+      auto kern = mask ? fwd_kernel<T, DP, BQ, BK, true> : fwd_kernel<T, DP, BQ, BK, false>;
+      if ((err = allow_smem(kern, smem, smem_set[0][mask])) != cudaSuccess) return err;
+      kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
+          q, k, v, static_cast<T*>(a.out), a.lse_out, a.dm, a.scale, a.causal, a.dr, a.mk);
+    }
   } else if constexpr (kRing<T, DP>) {
     if (pass == Pass::kDq) {
       constexpr size_t smem = ring_smem<DP>(Pass::kDq);

@@ -470,9 +470,9 @@ def flash_route(dtype: torch.dtype, head_dim: int,
     ``H * D * 2`` bytes are multiples of 16, as TMA requires) and every
     operand address 16-byte aligned; ``"fma"`` (``csrc/flash_attention.cu``)
     otherwise. A bias or segments do not enter the choice. On the FMA
-    route fp32 dq and dkv with ``head_dim`` up to 128 run
-    ``dq_fp32_kernel`` / ``dkv_fp32_kernel`` (FFMA blocked in registers,
-    a cp.async ring), the forward, bf16 and wider heads the one-tile FFMA
+    route fp32 with ``head_dim`` up to 128 runs ``fwd_fp32_kernel``,
+    ``dq_fp32_kernel`` and ``dkv_fp32_kernel`` (FFMA blocked in
+    registers, a cp.async ring), bf16 and wider heads the one-tile FFMA
     kernels; all of them sum in the plain version's order, so in fp32
     they give its bits wherever cuBLAS sums in that order too. fp32 never
     takes the tensor cores: TF32 products, even as 3xTF32, miss the fp32

@@ -1,7 +1,7 @@
-"""chip_ab.py, the on-card A/B of the RMSNorm, CE and fp32 flash dq /
-dkv kernels' design choices: every variant is a rewrite of the committed
-source that still applies, so the script builds what its docstring
-names."""
+"""chip_ab.py, the on-card A/B of the RMSNorm, CE and fp32 flash
+forward, dq and dkv kernels' design choices: every variant is a rewrite
+of the committed source that still applies, so the script builds what
+its docstring names."""
 import importlib.util
 import os
 
@@ -59,6 +59,67 @@ def test_flash_variants_swap_the_fp32_dq_and_dkv_designs():
         assert committed.count(kernel) == tc.count(kernel) == 1
     assert "score_products<" in committed and "score_products<" not in tc
     assert "(6 * 64 * DP + (pass == Pass::kDq ? 2 : 4) * 64)" in tc
+
+
+def test_flash_variants_swap_the_fp32_forward_designs():
+    """The forward's copies: the parent's one-tile fwd_kernel takes the
+    fp32 forward (fwd_fp32_kernel is never launched) while dq and dkv keep
+    their register-blocked kernels; P moves into the consumed K stage
+    behind a third barrier, its own buffer leaving the shared memory; two
+    blocks an SM at DP = 64; the bias read after the products, from
+    four strides at every key, as fwd_kernel reads it; the grid's own
+    order of q tiles;
+    the 3xTF32 copy replaces fwd_fp32_kernel alone, under its name, with
+    mma.sync TF32 products, leaving dq and dkv on FFMA."""
+    ab = _chip_ab()
+    sources = ab.variant_sources(("flash_attention",))
+    committed = sources[("flash_attention", "committed")]
+    parent = sources[("flash_attention", ab.FA_FWD_PARENT)]
+    assert "if constexpr (kRing<T, DP> && false) {" in parent
+    assert ("constexpr bool kRing = std::is_same<T, float>::value && "
+            "DP <= 128;") in parent
+    p_in_k = sources[("flash_attention", "forward, P in the consumed K stage")]
+    assert "float* Ps = Ks + (kt & 1) * KT;" in p_in_k
+    assert committed.count("__syncthreads()") + 1 == p_in_k.count(
+        "__syncthreads()")
+    assert "+ 64 * (64 + 4));" in committed and "+ 64 * (64 + 4));" not in \
+        p_in_k
+    assert "__launch_bounds__(kThreads)\nfwd_fp32_kernel" in committed
+    two = sources[("flash_attention", "forward at two blocks an SM")]
+    assert "__launch_bounds__(kThreads, DP == 64 ? 2 : 1)\nfwd_fp32_kernel" \
+        in two
+    late = sources[("flash_attention", "forward, bias read after the products")]
+    body = late.split("fwd_fp32_kernel(")[1]
+    assert "biased(s[i][j], scale, mk, dm, b, h, r, c)" in body
+    assert "fmul_rn(s[i][j], scale), bv[i][j])" not in body
+    order = sources[("flash_attention", "forward in the grid's own order")]
+    assert "const int bh = blockIdx.y;" in order.split("fwd_fp32_kernel(")[1]
+    tc = sources[("flash_attention", ab.FA_FWD_TENSOR_CORES)]
+    mma = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
+    assert mma not in committed and tc.count(mma) == 1
+    for kernel in ("fwd_fp32_kernel(", "dq_fp32_kernel(", "dkv_fp32_kernel("):
+        assert committed.count(kernel) == tc.count(kernel) == 1
+    assert tc.count("score_product<") == committed.count(
+        "score_product<") - 1
+    assert "score_products<" in tc and "second_product<" in tc
+
+
+def test_tile_chain_model_of_the_fp32_forward_grid():
+    """The model behind PERF.md's causal-chain figures: at one block an SM
+    the GPT-2 oracle's forward (192 q tiles) takes its longest q tile's
+    16 key tiles where the work spread evenly is 12.36 an SM, the Llama
+    oracle's 17 against 16.48, BERT's two waves of 8 tiles 16; the grid's
+    own order takes 22 and 27."""
+    ab = _chip_ab()
+    got = {label: (ab.tile_chain_units(b, s, h, causal),
+                   ab.tile_chain_units(b, s, h, causal, longest_first=False))
+           for label, (b, s, h, _, causal, _) in ab.FLASH_SHAPES.items()}
+    (gpt2, gpt2_grid), (llama, llama_grid), (bert, bert_grid) = (
+        got["GPT-2 oracle"], got["Llama oracle"], got["BERT oracle"])
+    assert gpt2[0] == 16 and round(gpt2[1], 2) == 12.36 and gpt2_grid[0] == 22
+    assert llama[0] == 17 and round(llama[1], 2) == 16.48 and \
+        llama_grid[0] == 27
+    assert bert[0] == bert_grid[0] == 16 and round(bert[1], 2) == 15.52
 
 
 def test_section_rewrite_replaces_from_start_to_end():

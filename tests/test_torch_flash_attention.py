@@ -40,12 +40,15 @@ BWD = dict(rtol=1e-4, atol=1e-4)
 
 # (B, Sq, Sk, Hq, Hk, D, causal): one tile; Sq < Sk with a padded key
 # tail and GQA 4/2; Sq > Sk with a padded query tail (causal: the first
-# Sq - Sk rows see no key, out = 0 and lse = -inf); non-causal GQA
+# Sq - Sk rows see no key, out = 0 and lse = -inf); non-causal GQA; a
+# head dim that is not a multiple of 4 (the rows of chip_smoke.py's
+# "d50-ragged-fp32", which no 16-byte copy can take)
 CASES = [
     (2, 64, 64, 2, 2, 32, True),
     (1, 72, 200, 4, 2, 32, True),
     (1, 130, 70, 2, 2, 16, True),
     (1, 130, 70, 4, 2, 16, False),
+    (1, 72, 200, 4, 2, 50, True),
 ]
 
 
@@ -826,16 +829,20 @@ def test_ptxas_report_reads_the_highest_register_of_each_kernel():
 
 
 def test_ptxas_report_counts_the_fp32_kernels_instructions():
-    """The build report names the FMA route's fp32 dq and dkv by head dim
-    and Mask, and counts from their SASS the HMMA, FFMA and shared-load
-    instructions (LDS of any width; LDSM, a matrix load, apart). The
-    one-tile FFMA kernels, templated on a type, keep their mangled
-    name."""
+    """The build report names the FMA route's fp32 forward, dq and dkv by
+    head dim and Mask, and counts from their SASS the HMMA, FFMA and
+    shared-load instructions (LDS of any width; LDSM, a matrix load,
+    apart). The one-tile FFMA kernels, templated on a type, keep their
+    mangled name."""
     cs = _chip_smoke()
     ns = "_ZN51_GLOBAL__N__e00e0efa_18_flash_attention_cu_21afe640"
     dq = f"{ns}14dq_fp32_kernelILi64ELb1EEEvPKfS2_S2_"
     dkv = f"{ns}15dkv_fp32_kernelILi128ELb0EEEvPKfS2_S2_"
-    log = (f"ptxas info    : Compiling entry function '{dq}' for 'sm_90a'\n"
+    fwd32 = f"{ns}15fwd_fp32_kernelILi128ELb1EEEvPKfS2_S2_PfS3_"
+    log = (f"ptxas info    : Compiling entry function '{fwd32}' for "
+           "'sm_90a'\n    0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+           "spill loads\nptxas info    : Used 232 registers, used 1 barriers\n"
+           f"ptxas info    : Compiling entry function '{dq}' for 'sm_90a'\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
            "loads\nptxas info    : Used 238 registers, used 1 barriers\n"
            f"ptxas info    : Compiling entry function '{dkv}' for 'sm_90a'\n"
@@ -844,14 +851,18 @@ def test_ptxas_report_counts_the_fp32_kernels_instructions():
     sass = (f"\t\tFunction : {dq}\n FFMA R1, R2, R3, R1 ;\n LDS.128 R4, "
             "[R2+0x10] ;\n LDSM.16.M88.4 R8, [R3] ;\n FFMA R5, R6, R7, R5 ;"
             f"\n\t\tFunction : {dkv}\n LDS R1, [R2] ;\n LDS.64 R2, [R3] "
-            ";\n FFMA R9, R10, R11, R9 ;\n")
+            ";\n FFMA R9, R10, R11, R9 ;\n"
+            f"\t\tFunction : {fwd32}\n LDS.128 R4, [R2] ;\n FFMA R1, R2, "
+            "R3, R1 ;\n FFMA R5, R6, R7, R5 ;\n FFMA R8, R6, R7, R8 ;\n")
     rep = cs.ptxas_report(log, sass)
     assert [(r["kernel"], r["registers"], r["spill_stores"])
-            for r in rep["kernels"]] == [("dq_fp32_kernel<64,1>", 238, 0),
+            for r in rep["kernels"]] == [("fwd_fp32_kernel<128,1>", 232, 0),
+                                         ("dq_fp32_kernel<64,1>", 238, 0),
                                          ("dkv_fp32_kernel<128,0>", 244, 0)]
     assert rep["ops"] == {
         "dq_fp32_kernel<64,1>": {"HMMA": 0, "FFMA": 2, "LDS": 1},
-        "dkv_fp32_kernel<128,0>": {"HMMA": 0, "FFMA": 1, "LDS": 2}}
+        "dkv_fp32_kernel<128,0>": {"HMMA": 0, "FFMA": 1, "LDS": 2},
+        "fwd_fp32_kernel<128,1>": {"HMMA": 0, "FFMA": 3, "LDS": 1}}
     fwd = f"{ns}10fwd_kernelIfLi64ELi64ELi64ELb0EEEvPKT_"
     assert cs._short_kernel(fwd) == fwd
 
@@ -901,9 +912,27 @@ def test_fp32_oracle_attention_is_checked_and_timed():
         assert tfa.flash_route(torch.float32, cases[case][6]) == "fma"
 
 
+def test_fp32_case_with_rows_off_16_bytes_is_checked():
+    """chip_smoke.py holds the FMA route's fp32 forward, dq and dkv at a
+    head dim that is not a multiple of 4: no row of q, k or v then starts
+    on a 16-byte boundary, so ``rows16`` cannot hold and the register-
+    blocked fp32 kernels copy their tiles by 4-byte cp.async. The case
+    has ragged q and k tiles, causal and GQA, and takes DP = 64."""
+    cs = _chip_smoke()
+    cases = {c[0]: c for c in cs.FLASH_CASES}
+    name, b, sq, sk, hq, hk, d, dtype, causal, rate = cases["d50-ragged-fp32"]
+    assert dtype == torch.float32 and d % 4 != 0 and 64 < d * 2 <= 128
+    assert sq % 64 and sk % 64 and causal and hq != hk and rate == 0.0
+    assert tfa.flash_route(dtype, d) == "fma"
+
+
 @pytest.mark.parametrize("name,cls", [
     ("void (anonymous namespace)::fwd_sm90_kernel<128, 0, false>(...)",
      "flash fwd wgmma kernel"),
+    ("void (anonymous namespace)::fwd_fp32_kernel<64, true>(...)",
+     "flash fwd kernel"),
+    ("void (anonymous namespace)::fwd_kernel<float, 256, 32, 32, false>"
+     "(...)", "flash fwd kernel"),
     ("void (anonymous namespace)::fwd_overlap_sm90_kernel<128>(...)",
      "flash fwd wgmma kernel"),
     ("void (anonymous namespace)::dq_sm90_kernel<128, false, 0, false>(...)",
