@@ -1,7 +1,7 @@
 """On-card smoke test of the PyTorch/CUDA port (paddle_tpu_torch).
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
-                          [--phases kernels,serve,train,bert,llama]
+                          [--phases kernels,serve,train,bert,llama,trainloop]
                           [--optimizer-ab]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
@@ -134,6 +134,54 @@ Phases, each fatal on failure:
       nothing else. Reports ms/step, tokens/s, peak memory and MFU
       (bench_configs.py's ``_mfu_llama`` count over 989 TFLOP/s); with
       ``--profile`` one step goes under ``torch.profiler``.
+9. trainloop: the training loop a Paddle user writes, on GPT-2 small
+   (dropout 0), with the LR schedule
+   ``LinearWarmup(CosineAnnealingDecay(3e-4, T_max=20), warmup_steps=2,
+   start_lr=0, end_lr=3e-4)``.
+   a. oracle: 2 layers at GPT-2 small's widths, fp32, batch 1 x 1024:
+      three eager steps (``loss.backward(); opt.step(); opt.clear_grad();
+      sched.step()``) of AdamW (weight decay 0.01 off biases and norms
+      through ``apply_decay_param_fun``, ``ClipGradByGlobalNorm`` at half
+      the first step's global norm, so that it engages) on the card (FMA
+      flash kernels) and on the CPU from the same weights: each loss
+      within rtol 1e-4, every gradient of every step within 1e-3 of its
+      max-abs, each parameter's change over the three steps within 1e-3
+      of that change's largest magnitude (the key projections' biases,
+      whose gradient is zero in exact arithmetic, held by their
+      gradients to 1e-6 of the largest; so are the entries whose two
+      gradients differ by more than 1e-3 of |gradient| + Adam's eps,
+      whose update that difference can move by more than the bound,
+      counted); then SGD through
+      ``create_multistep_train_step(steps=1, accumulate=2)`` on two
+      1 x 512 microbatches against the concatenated 2 x 512 batch, three
+      steps each on the card: losses rtol 1e-5, parameters rtol 1e-4 /
+      atol 1e-5. Exactly 2 flash forwards, dq and dkv (FMA), 5 LayerNorms
+      and one CE forward and backward per pass.
+   b. eager O2 (cell ``gpt2s-bf16-O2-eager-b8``): the fp32 model and its
+      AdamW through ``amp.decorate(level="O2", dtype="bfloat16")`` (bf16
+      parameters, fp32 master weights), ``ClipGradByGlobalNorm(1.0)``,
+      20 steps on one batch of 8 x 1024: the loss must fall by at least
+      0.5, the rate of each step must equal the schedule's, the global
+      norm after clipping must stay within 1.0 (1 + 1e-2), every bf16
+      parameter must equal its fp32 master rounded to bf16 bit for bit,
+      and every step must launch the train cell's kernels (12/12/12
+      wgmma flash, 25 LayerNorm, 1/1 CE). Prints the global norm before
+      clipping at each step, ms/step, tokens/s and peak memory.
+   c. run_steps (cell ``gpt2s-bf16-run-steps-k4-m2``), bf16 parameters,
+      AdamW(3e-4, weight decay 0.01 off biases and norms):
+      ``create_multistep_train_step(steps=4)`` must equal 4
+      ``create_train_step`` calls on a twin bit for bit (losses and
+      parameters, batch 8 x 1024); then 20 optimizer steps as 5
+      dispatches of ``steps=4, accumulate=2`` (microbatch 4 x 1024; each
+      step the same 8 sequences in a new order), fed by
+      ``prefetch_to_device(host numpy batches, stack=4, depth=2)`` with
+      the schedule's rate at each dispatch's first step as ``lr(i)``,
+      must give a synchronous loop's losses and parameters on a twin bit
+      for bit; the loss must fall, and every step must launch 24/24/24
+      wgmma flash, 50 LayerNorm and 2/2 CE kernels. Four turns in all
+      (run_steps, synchronous, run_steps, synchronous), each compared,
+      each timed: ms/step and ``pipeline_stats`` (host-blocked vs
+      device-blocked seconds).
 
 ``--optimizer-ab`` adds GPT-2's and BERT's train cells with the flag
 ``use_fused_optimizer`` on and off in turns (ms/step, the profiled
@@ -1418,7 +1466,7 @@ def phase_profile(cell, model, prompts, out_dir, device="cuda"):
     return out
 
 
-PHASES = ("kernels", "serve", "train", "bert", "llama")
+PHASES = ("kernels", "serve", "train", "bert", "llama", "trainloop")
 TRAIN_STEPS = 20
 TRAIN_LR = 3e-4
 BERT_LR = 1e-4
@@ -2157,6 +2205,460 @@ def phase_llama_full(seed, card, profile, out_dir):
     return res
 
 
+TRAINLOOP_EAGER_CELL = "gpt2s-bf16-O2-eager-b8"
+TRAINLOOP_RUN_CELL = "gpt2s-bf16-run-steps-k4-m2"
+TRAINLOOP_K, TRAINLOOP_M = 4, 2
+
+
+def _warmup_cosine():
+    """The loop's schedule: 2 warmup steps from 0 to 3e-4, then a cosine
+    over 20 epochs (started at its epoch 1, as the reference's
+    ``LinearWarmup`` steps it)."""
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+    return LinearWarmup(CosineAnnealingDecay(TRAIN_LR, T_max=20),
+                        warmup_steps=2, start_lr=0.0, end_lr=TRAIN_LR)
+
+
+def _schedule_values(n: int) -> list:
+    sched, out = _warmup_cosine(), []
+    for _ in range(n):
+        out.append(sched())
+        sched.step()
+    return out
+
+
+def _decays(name: str) -> bool:
+    """AdamW's ``apply_decay_param_fun``: no decay on biases and norms
+    (the trainer's ``_wd_mask``)."""
+    return "bias" not in name and "norm" not in name.lower() \
+        and "ln_" not in name
+
+
+def _global_norm(pairs) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for _, g in pairs if g is not None))
+
+
+class _ClipSpy:
+    """Wraps an optimizer's ``grad_clip``: keeps the global norm of the
+    gradients before and after clipping, on the device, for each step."""
+
+    def __init__(self, clip):
+        self.clip, self.before, self.after = clip, [], []
+
+    def __call__(self, pairs):
+        out = self.clip(pairs)
+        self.before.append(_global_norm(pairs))
+        self.after.append(_global_norm(out))
+        return out
+
+
+def _gpt2_twins(seed, n, layers=None, device="cuda", bf16=False):
+    """``n`` GPT-2 small models (``layers`` deep) with the same weights,
+    dropout 0; fp32, or bf16 parameters."""
+    from paddle_tpu_torch.core.random import make_generator
+    from paddle_tpu_torch.models import (GPTForCausalLM, gpt2_small,
+                                         write_back)
+    cfg = gpt2_small()
+    cfg.dropout = 0.0
+    if layers is not None:
+        cfg.num_layers = layers
+    models = [GPTForCausalLM(cfg, device=device,
+                             generator=make_generator(seed, device))
+              for _ in range(n)]
+    for m in models:
+        if bf16:
+            write_back(m, {k: v.detach().to(torch.bfloat16)
+                           for k, v in m.named_parameters()})
+    return cfg, models
+
+
+def _eager_optimizer(model, clip_norm):
+    """The Paddle user's optimizer: AdamW under the warmup-cosine
+    schedule, weight decay 0.01 off biases and norms (by name), global-
+    norm clipping at ``clip_norm`` (watched by a ``_ClipSpy``). Returns
+    (schedule, spy, optimizer)."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    sched = _warmup_cosine()
+    spy = _ClipSpy(ClipGradByGlobalNorm(clip_norm))
+    opt = AdamW(sched, parameters=model.named_parameters(),
+                weight_decay=0.01, apply_decay_param_fun=_decays,
+                grad_clip=spy)
+    return sched, spy, opt
+
+
+def _hold_loop_changes(runs) -> dict:
+    """The oracle's three AdamW steps held entry by entry. Every
+    gradient of every step within 1e-3 of its max-abs on the CPU (the key
+    projections' biases, zero in exact arithmetic, within 1e-6 of the
+    model's largest gradient on both sides). Every parameter's change
+    over the three steps within 1e-3 of that change's largest magnitude,
+    apart from the entries whose gradient the arithmetic does not fix:
+    Adam divides each entry's moment by the root of its second moment
+    plus eps (1e-8), so a relative change f of an entry's gradients moves
+    its update by up to f x lr, and an entry whose gradient is rounding
+    noise (~1e-9 beside a largest of ~1e-2 on the card) takes an update
+    of up to the learning rate in a direction the noise picks. So the
+    entries where at some step the two sides' gradients differ by more
+    than the bound itself, 1e-3 x (|gradient| + eps), are held by their
+    gradients (above) and counted (0.18 % of the entries on an H100;
+    the worst of the others then used 0.63 of the bound)."""
+    card, cpu = runs["card"], runs["cpu"]
+    top = max(float(g.abs().max()) for step in cpu["grads"]
+              for g in step.values())
+    worst_grad = worst = vanishing = 0.0
+    noisy = total = 0
+    for n, d_ref in cpu["delta"].items():
+        pairs = [(a[n], b[n]) for a, b in zip(card["grads"], cpu["grads"])]
+        if n.endswith("self_attn.k_proj.bias"):
+            mag = max(float(t.abs().max()) for pr in pairs for t in pr) / top
+            vanishing = max(vanishing, mag)
+            if not mag <= 1e-6:
+                raise AssertionError(f"oracle grad {n}: {mag:.3e} of the "
+                                     f"largest gradient, expected ~0")
+            continue
+        loose = torch.zeros(d_ref.shape, dtype=torch.bool)
+        for g, g_ref in pairs:
+            rel = float((g - g_ref).abs().max()) / max(
+                float(g_ref.abs().max()), 1e-30)
+            worst_grad = max(worst_grad, rel)
+            if not rel <= 1e-3:
+                raise AssertionError(f"oracle grad {n}: max diff {rel:.3e} "
+                                     f"of its max-abs > 1e-3")
+            loose |= (g - g_ref).abs() > 1e-3 * (g_ref.abs() + 1e-8)
+        noisy += int(loose.sum())
+        total += loose.numel()
+        d = card["delta"][n]
+        diff = torch.where(loose, torch.zeros_like(d), (d - d_ref).abs())
+        rel = float(diff.max()) / max(float(d_ref.abs().max()), 1e-30)
+        worst = max(worst, rel)
+        if not rel <= 1e-3:
+            raise AssertionError(f"oracle change of {n}: max diff {rel:.3e} "
+                                 f"of its max-abs > 1e-3")
+    log(f"  oracle: every gradient of the 3 steps agrees, worst "
+        f"{worst_grad:.3e} of its max-abs; every parameter's change agrees, "
+        f"worst {worst:.3e} of its max-abs (bound 1e-3), apart from "
+        f"{noisy} of {total} entries whose gradients are rounding noise "
+        f"(held by those); k_proj biases' gradients zero up to "
+        f"{vanishing:.2e} of the largest")
+    return {"worst_grad_rel": worst_grad, "worst_change_rel": worst,
+            "noise_gradient_entries": noisy, "entries": total,
+            "k_proj_bias_grad_rel": vanishing}
+
+
+def phase_trainloop_oracle(seed, device="cuda"):
+    """Three eager steps of the Paddle loop (AdamW, warmup-cosine,
+    global-norm clipping that engages) with GPT-2 small's widths at 2
+    layers, fp32, batch 1 x 1024, on the card (FMA flash kernels) and on
+    the CPU (plain versions) from the same weights; then SGD through
+    ``create_multistep_train_step(steps=1, accumulate=2)`` on 2 x
+    (1 x 512) microbatches against the concatenated [2, 512] batch on
+    the card, 3 steps each."""
+    from paddle_tpu_torch.models import create_multistep_train_step
+    from paddle_tpu_torch.optimizer import SGD
+    cfg, (cpu,) = _gpt2_twins(seed, 1, layers=2, device="cpu")
+    _, (gpu,) = _gpt2_twins(seed, 1, layers=2, device=device)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (1, cfg.max_position_embeddings + 1))
+    x, y = ids[:, :-1], ids[:, 1:]
+    # the clip is set at half the first step's global norm: it engages
+    t0 = time.perf_counter()
+    cpu.loss(torch.as_tensor(x), torch.as_tensor(y)).backward()
+    norm0 = float(_global_norm((None, p.grad) for p in cpu.parameters()))
+    cpu.zero_grad(set_to_none=True)
+    clip_norm = 0.5 * norm0
+    runs = {}
+    # the counted run: the card's eager steps and SGD runs below (the
+    # CPU's steps between them launch nothing)
+    _reset_counts()
+    for side, m in (("card", gpu), ("cpu", cpu)):
+        dev = next(m.parameters()).device
+        xs, ys = (torch.as_tensor(a, device=dev) for a in (x, y))
+        before = {n: p.detach().clone() for n, p in m.named_parameters()}
+        sched, spy, opt = _eager_optimizer(m, clip_norm)
+        losses, grads = [], []
+        for _ in range(3):
+            loss = m.loss(xs, ys)
+            loss.backward()
+            grads.append({n: p.grad.detach().cpu().clone()
+                          for n, p in m.named_parameters()})
+            opt.step()
+            opt.clear_grad()
+            sched.step()
+            losses.append(float(loss.detach()))
+        runs[side] = {"losses": losses, "grads": grads,
+                      "norms": [float(v) for v in spy.before],
+                      "delta": {n: (p.detach() - before[n]).cpu()
+                                for n, p in m.named_parameters()}}
+    log(f"  oracle: 3 eager steps, card {runs['card']['losses']}, CPU "
+        f"{runs['cpu']['losses']} ({time.perf_counter() - t0:.1f} s); "
+        f"global norm before clipping {runs['card']['norms']} (clip at "
+        f"{clip_norm:.4f})")
+    for a, b in zip(runs["card"]["losses"], runs["cpu"]["losses"]):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"oracle loss {a} vs CPU {b}: beyond "
+                                 f"rtol 1e-4")
+    if not runs["card"]["norms"][0] > clip_norm:
+        raise AssertionError("the clip did not engage at the first step")
+    held = _hold_loop_changes(runs)
+    # SGD: accumulate=2 on two microbatches against the concatenated batch    # SGD: accumulate=2 on two microbatches against the concatenated batch
+    ids2 = rng.randint(0, cfg.vocab_size, (2, 513))
+    cx, cy = ids2[None, :, :-1], ids2[None, :, 1:]           # [1, 2, 512]
+    mx, my = cx.reshape(1, 2, 1, 512), cy.reshape(1, 2, 1, 512)
+    _, (cat, acc) = _gpt2_twins(seed, 2, layers=2, device=device)
+    sgd = {}
+    for name, m, xs, ys, accumulate in (("concat", cat, cx, cy, 1),
+                                        ("accumulate", acc, mx, my, 2)):
+        step = create_multistep_train_step(
+            m, SGD(0.05, parameters=m.parameters()), steps=1,
+            accumulate=accumulate)
+        sgd[name] = torch.cat([step(xs, ys, 5e-3) for _ in range(3)])
+    counts = _counts()                               # counted run ends
+    expect = _expected_counts(cfg.num_layers, 3 + 3 + 2 * 3, "fma")
+    if counts != expect:
+        raise AssertionError(f"oracle launches {counts}, expected {expect}")
+    la, lc = sgd["accumulate"].cpu().numpy(), sgd["concat"].cpu().numpy()
+    np.testing.assert_allclose(la, lc, rtol=1e-5, atol=1e-6)
+    for (n, p), q in zip(cat.named_parameters(), acc.parameters()):
+        np.testing.assert_allclose(q.detach().cpu().numpy(),
+                                   p.detach().cpu().numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=n)
+    log(f"  oracle: SGD accumulate=2 losses {la.tolist()} vs the "
+        f"concatenated batch {lc.tolist()}; every parameter within rtol "
+        f"1e-4 / atol 1e-5")
+    return {"losses_card": runs["card"]["losses"],
+            "losses_cpu": runs["cpu"]["losses"],
+            "global_norms_card": runs["card"]["norms"],
+            "clip_norm": clip_norm, **held,
+            "sgd_accumulate_losses": la.tolist(),
+            "sgd_concat_losses": lc.tolist(), "launches": counts}
+
+
+def phase_trainloop_eager(seed, card, device="cuda"):
+    """The eager Paddle loop at full width: GPT-2 small in fp32, then
+    ``amp.decorate(..., level="O2", dtype="bfloat16")`` (bf16 parameters,
+    fp32 master weights), the warmup-cosine AdamW with
+    ``ClipGradByGlobalNorm(1.0)``, 20 steps on one batch of 8 x 1024."""
+    from paddle_tpu_torch import amp
+    cfg, (model,) = _gpt2_twins(seed, 1, device=device)
+    batch, seq = 8, cfg.max_position_embeddings
+    sched, spy, opt = _eager_optimizer(model, 1.0)
+    amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    if not (opt._multi_precision and all(
+            p.dtype == torch.bfloat16 for p in model.parameters())):
+        raise AssertionError("amp.decorate: parameters not bf16 or master "
+                             "weights off")
+    rng = np.random.RandomState(seed + 1)
+    ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq + 1)),
+                          device=device)
+    x, y = ids[:, :-1], ids[:, 1:]
+    expected_lrs = _schedule_values(TRAIN_STEPS)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                                  # counted run starts
+    losses, lrs = [], []
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        loss = model.loss(x, y)
+        loss.backward()
+        lrs.append(opt.get_lr())
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        losses.append(loss.detach())
+        if i == 0:
+            _sync(device)
+            t1 = time.perf_counter()
+    _sync(device)
+    t2 = time.perf_counter()
+    counts = _counts()                               # counted run ends
+    losses = [float(v) for v in losses]
+    before = [float(v) for v in spy.before]
+    after = [float(v) for v in spy.after]
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    ms_step = (t2 - t1) / (TRAIN_STEPS - 1) * 1e3
+    tokens_s = batch * seq / (ms_step / 1e3)
+    log(f"  eager O2: loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
+        f"{TRAIN_STEPS} steps; lr {['%.3e' % v for v in lrs]}")
+    log(f"  eager O2: global norm before clipping "
+        f"{['%.4f' % v for v in before]}; after, at most {max(after):.6f}")
+    log(f"  eager O2: {ms_step:.2f} ms/step, {tokens_s:.0f} tokens/s, peak "
+        f"memory {peak / 2**30:.2f} GiB, first step {t1 - t0:.2f} s "
+        f"[{card}]")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[0] - losses[-1] >= 0.5:
+        raise AssertionError(f"loss fell by {losses[0] - losses[-1]:.4f} "
+                             f"< 0.5 over {TRAIN_STEPS} steps")
+    if lrs != expected_lrs:
+        raise AssertionError(f"lr used {lrs}, the schedule gives "
+                             f"{expected_lrs}")
+    if not max(after) <= 1.0 * (1 + 1e-2):
+        raise AssertionError(f"global norm after clipping {max(after)} > "
+                             f"1.0 (1 + 1e-2)")
+    unequal = [n for n, p in model.named_parameters()
+               if not torch.equal(p, opt._master_weights[p].to(p.dtype))]
+    if unequal:
+        raise AssertionError(f"bf16 parameters differ from their rounded "
+                             f"fp32 masters: {unequal[:5]}")
+    expect = _expected_counts(cfg.num_layers, TRAIN_STEPS, "wgmma")
+    if counts != expect:
+        raise AssertionError(f"launches {counts}, expected {expect}")
+    log(f"  eager O2: every bf16 parameter equals its fp32 master rounded, "
+        f"bit for bit; launches per step as the train cell's")
+    return {"batch": batch, "seq": seq, "losses": losses, "lrs": lrs,
+            "global_norm_before_clip": before,
+            "global_norm_after_clip": after, "ms_per_step": ms_step,
+            "tokens_per_s": tokens_s, "first_step_s": t1 - t0,
+            "peak_mem_bytes": peak, "launches": counts, "card": card}
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _loop_batches(rng, vocab, seq, steps, micro):
+    """``steps`` host batches of ``[M, micro, seq]`` ids and labels: the
+    same 8 sequences in a new order each step (so the loss can fall)."""
+    pool = rng.randint(0, vocab, (TRAINLOOP_M * micro, seq + 1))
+    out = []
+    for _ in range(steps):
+        ids = pool[rng.permutation(len(pool))].reshape(
+            TRAINLOOP_M, micro, seq + 1)
+        out.append((ids[..., :-1].copy(), ids[..., 1:].copy()))
+    return out
+
+
+def phase_trainloop_run_steps(seed, card, device="cuda"):
+    """``create_multistep_train_step`` and ``run_steps`` at full width,
+    bf16 parameters, AdamW(3e-4, weight decay 0.01 off biases and
+    norms): (1) ``steps=4`` against 4 ``create_train_step`` calls on a
+    twin, bit for bit; (2) 20 optimizer steps as 5 dispatches of
+    ``steps=4, accumulate=2`` (microbatch 4 x 1024), fed by
+    ``prefetch_to_device(..., stack=4, depth=2)`` with the warmup-cosine
+    schedule as ``lr(i)``, against a synchronous loop on a twin over the
+    same batches, bit for bit; then both timed in turns."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.io import prefetch_to_device
+    from paddle_tpu_torch.models import (create_multistep_train_step,
+                                         create_train_step, run_steps)
+    from paddle_tpu_torch.optimizer import AdamW
+    K, M, micro = TRAINLOOP_K, TRAINLOOP_M, 4
+    rng = np.random.RandomState(seed + 2)
+
+    def adamw(m):
+        return AdamW(TRAIN_LR, parameters=m.parameters(), weight_decay=0.01)
+
+    # (1) steps=4 against four single steps
+    cfg, (one, four) = _gpt2_twins(seed, 2, device=device, bf16=True)
+    seq = cfg.max_position_embeddings
+    ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (K, 8, seq + 1)),
+                          device=device)
+    x, y = ids[..., :-1], ids[..., 1:]
+    step1 = create_train_step(one, adamw(one))
+    ref = torch.stack([step1(x[i], y[i], TRAIN_LR) for i in range(K)])
+    got = create_multistep_train_step(four, adamw(four), steps=K)(
+        x, y, TRAIN_LR)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"steps={K} losses {got.tolist()} vs {K} "
+                             f"single steps {ref.tolist()}")
+    unequal = [n for (n, p), q in zip(one.named_parameters(),
+                                      four.parameters())
+               if not torch.equal(p, q)]
+    if unequal:
+        raise AssertionError(f"steps={K}: parameters differ from {K} "
+                             f"single steps: {unequal[:5]}")
+    log(f"  multistep: steps={K} equals {K} create_train_step calls bit for "
+        f"bit (losses {got.tolist()} and every parameter)")
+    del one, four, step1
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # (2) run_steps over the prefetcher against the synchronous loop
+    _, (run_m, sync_m) = _gpt2_twins(seed, 2, device=device, bf16=True)
+    steps = TRAIN_STEPS // K                         # dispatches per turn
+    lr_of = _schedule_values(TRAIN_STEPS)
+
+    def lr(i):                 # dispatch i: the schedule at its first step
+        return lr_of[i * K]
+
+    step_run = create_multistep_train_step(run_m, adamw(run_m), steps=K,
+                                           accumulate=M)
+    step_sync = create_multistep_train_step(sync_m, adamw(sync_m), steps=K,
+                                            accumulate=M)
+    res = {"turns": []}
+    for turn in range(4):
+        batches = _loop_batches(rng, cfg.vocab_size, seq, TRAIN_STEPS,
+                                micro)
+        kind = ("run_steps", "sync")[turn % 2]
+        _sync(device)
+        t0 = time.perf_counter()
+        if kind == "run_steps":
+            if turn == 0:
+                _reset_counts()                      # counted run starts
+            feed = prefetch_to_device(iter(batches), depth=2, stack=K,
+                                      device=device, name="trainloop")
+            losses = run_steps(step_run, feed, lr=lr)
+            _sync(device)
+            wall = time.perf_counter() - t0
+            if turn == 0:
+                counts = _counts()                   # counted run ends
+            stats = profiler.pipeline_stats("trainloop")
+            feed.close()
+            losses = np.concatenate(losses)
+            # the synchronous twin goes over the same batches next
+            pending = (batches, losses)
+        else:
+            batches, ref_losses = pending
+            losses = []
+            for j in range(steps):
+                bx = np.stack([b[0] for b in batches[j * K:(j + 1) * K]])
+                by = np.stack([b[1] for b in batches[j * K:(j + 1) * K]])
+                losses.append(step_sync(bx, by, lr(j)).cpu().numpy())
+            _sync(device)
+            wall = time.perf_counter() - t0
+            losses = np.concatenate(losses)
+            stats = None
+            if not np.array_equal(losses, ref_losses):
+                raise AssertionError(f"turn {turn}: run_steps losses "
+                                     f"{ref_losses.tolist()} vs the "
+                                     f"synchronous loop {losses.tolist()}")
+        ms = wall / TRAIN_STEPS * 1e3
+        res["turns"].append({"kind": kind, "ms_per_step": ms,
+                             "losses": losses.tolist(), "pipeline": stats})
+        log(f"  {kind} turn {turn}: {ms:.2f} ms/step, loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}"
+            + (f"; host blocked {stats['host_blocked_s']:.4f} s, device "
+               f"blocked {stats['device_blocked_s']:.4f} s, producer busy "
+               f"{stats['producer_busy_s']:.4f} s, transfer p50 "
+               f"{stats['transfer_ms']['p50']:.3f} ms ({stats['bound']}-"
+               f"bound)" if stats else "") + f" [{card}]")
+    unequal = [n for (n, p), q in zip(run_m.named_parameters(),
+                                      sync_m.parameters())
+               if not torch.equal(p, q)]
+    if unequal:
+        raise AssertionError(f"run_steps and the synchronous loop end with "
+                             f"different parameters: {unequal[:5]}")
+    first = res["turns"][0]["losses"]
+    if not first[0] - first[-1] > 0:
+        raise AssertionError(f"run_steps: the loss did not fall: {first}")
+    expect = _expected_counts(cfg.num_layers, M * TRAIN_STEPS, "wgmma")
+    if counts != expect:
+        raise AssertionError(f"run_steps launches {counts}, expected "
+                             f"{expect}")
+    log(f"  run_steps: losses equal the synchronous loop's bit for bit in "
+        f"every turn, parameters too; launches per step 24/24/24 wgmma "
+        f"flash, 50 LayerNorm, 2/2 CE")
+    res.update({"microbatch": [micro, seq], "steps": K, "accumulate": M,
+                "launches": counts, "card": card})
+    return res
+
+
 def phase_optimizer_ab(seed, out_dir):
     """GPT-2's and BERT's train cells with ``use_fused_optimizer`` on and
     off in turns (on, off, on, off), each turn on a fresh AdamW over the
@@ -2323,8 +2825,9 @@ def main(argv=None) -> int:
                     help="also profile decode steps and one train step")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of kernels,serve,train,bert"
-                         ",llama (default: all); a subset is a development "
-                         "aid and ends with \"ok\": \"partial\", not true")
+                         ",llama,trainloop (default: all); a subset is a "
+                         "development aid and ends with \"ok\": "
+                         "\"partial\", not true")
     ap.add_argument("--optimizer-ab", action="store_true",
                     help="also time GPT-2's and BERT's train cells with "
                          "use_fused_optimizer on and off in turns")
@@ -2495,6 +2998,22 @@ def main(argv=None) -> int:
         log(f"  phase llama: {res['phase_seconds']:.1f} s")
         report.setdefault("train", {})[LLAMA_CELL] = res
         by_path[LLAMA_CELL] = res["launches"]
+        torch.cuda.empty_cache()
+
+    if "trainloop" in phases:
+        log("trainloop:")
+        t0 = time.perf_counter()
+        res = {"oracle": phase_trainloop_oracle(args.seed)}
+        by_path["gpt2s-fp32-trainloop-oracle"] = res["oracle"]["launches"]
+        torch.cuda.empty_cache()
+        res[TRAINLOOP_EAGER_CELL] = phase_trainloop_eager(args.seed, card)
+        by_path[TRAINLOOP_EAGER_CELL] = res[TRAINLOOP_EAGER_CELL]["launches"]
+        torch.cuda.empty_cache()
+        res[TRAINLOOP_RUN_CELL] = phase_trainloop_run_steps(args.seed, card)
+        by_path[TRAINLOOP_RUN_CELL] = res[TRAINLOOP_RUN_CELL]["launches"]
+        res["phase_seconds"] = time.perf_counter() - t0
+        log(f"  phase trainloop: {res['phase_seconds']:.1f} s")
+        report["trainloop"] = res
         torch.cuda.empty_cache()
 
     if args.optimizer_ab:

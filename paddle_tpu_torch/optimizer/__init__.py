@@ -1,4 +1,7 @@
-"""Optimizers (counterpart of paddle_tpu/optimizer)."""
-from .optimizer import Adam, AdamW
+"""Optimizers and LR schedules (counterpart of paddle_tpu/optimizer)."""
+from . import lr
+from .optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb,
+                        Momentum, Optimizer, RMSProp, Rprop)
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adagrad", "RMSProp",
+           "Adam", "AdamW", "Adamax", "Adadelta", "Lamb", "Rprop"]

@@ -1,7 +1,7 @@
 """Metrics primitives (the part of paddle_tpu/profiler/metrics.py that
-``DecodeMetrics`` uses): ``Histogram`` (bounded-reservoir percentiles)
-and ``MetricsBase`` (thread-safe counters + histograms + a pull-type
-depth gauge)."""
+``DecodeMetrics`` and ``PipelineMetrics`` use): ``Histogram``
+(bounded-reservoir percentiles) and ``MetricsBase`` (thread-safe
+counters + histograms + second totals + a pull-type depth gauge)."""
 from __future__ import annotations
 
 import threading
@@ -48,17 +48,20 @@ class Histogram:
 
 
 class MetricsBase:
-    """Thread-safe metrics bundle: subclasses declare ``COUNTERS`` and
-    ``HISTS``; ``set_depth_gauge`` installs a pull-type gauge read at
-    snapshot time."""
+    """Thread-safe metrics bundle: subclasses declare ``COUNTERS``,
+    ``HISTS`` and (optionally) ``TIMES`` (float second totals);
+    ``set_depth_gauge`` installs a pull-type gauge read at snapshot
+    time."""
 
     COUNTERS: tuple = ()
     HISTS: tuple = ()
+    TIMES: tuple = ()
 
     def __init__(self, name: str):
         self.name = name
         self._lock = threading.Lock()
         self._counters: Dict[str, int] = {k: 0 for k in self.COUNTERS}
+        self._times: Dict[str, float] = {k: 0.0 for k in self.TIMES}
         self._hists: Dict[str, Histogram] = {k: Histogram()
                                              for k in self.HISTS}
         self._depth_fn: Optional[Callable[[], int]] = None
@@ -70,6 +73,10 @@ class MetricsBase:
     def observe(self, hist: str, v: float):
         with self._lock:
             self._hists[hist].observe(v)
+
+    def add_time(self, key: str, seconds: float):
+        with self._lock:
+            self._times[key] = self._times.get(key, 0.0) + float(seconds)
 
     def set_depth_gauge(self, fn: Callable[[], int]):
         self._depth_fn = fn
