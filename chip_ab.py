@@ -37,6 +37,14 @@ forward, then backward):
   two TF32 parts), whose out and lse, or dq, dk and dv, are held to the
   plain version only to report the share of chip_smoke.py's
   ``FLASH_RTOL`` (and ``LSE_RTOL``) they use.
+- the same source's bf16 forward of the FMA route (``fwd_mma_kernel``)
+  at GPT-2's and Llama-2 7B's training attention, Gemma-7B's (D = 256)
+  and an odd head dim (D = 45), all causal: the parent's one-tile
+  fwd_kernel in its place, one 16-row block a warp, 4 warps or 32-key
+  tiles at D = 256, 32-key tiles at D = 128, the S loop unrolled by two,
+  O rescaled only when a max moved; out and lse within ``FLASH_RTOL``
+  and ``LSE_RTOL`` of the plain version, each copy's ptxas registers and
+  spills printed, timed in turns beside sdpa.
 
     python3 chip_ab.py --kernels flash_attention
 
@@ -151,7 +159,7 @@ _FA_DKV_TWO_BLOCKS = (
     "dkv_fp32_kernel")
 _FA_SECTION = ("// dq: grid (nq, B*Hq), as dq_kernel\n",
                "// -----------------------------------------------------------"
-               "----------------\n// launch\n")
+               "----------------\n// bf16 forward on the tensor cores")
 _FA_TF32_HELPERS = r"""// Products on the tensor cores, 3xTF32: each fp32
 // operand x split into big = tf32(x) and small = tf32(x - big) (both to
 // nearest), each product taken as small.big + big.small + big.big by
@@ -767,6 +775,46 @@ fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 FA_TENSOR_CORES = "3xTF32 on the tensor cores"
 FA_FWD_TENSOR_CORES = "forward as 3xTF32 on the tensor cores"
 FA_FWD_PARENT = "one-tile forward (the parent)"
+# the bf16 forward of the FMA route (fwd_mma_kernel): the one-tile
+# fwd_kernel in its place (the parent of its redesign); one 16-row block a
+# warp at DP <= 128 (each K and V fragment read for 16 rows, not 32); 4
+# warps (64-row q tiles) at DP = 256; 32-key tiles at DP = 256, there also
+# with 4 warps (two blocks an SM); 32-key tiles at DP = 128; the S
+# products' d loop unrolled by two; O rescaled only when a row's max moved
+# in the warp (a vote a tile)
+FA_BF16_PARENT = "bf16 forward: one-tile fwd_kernel (the parent)"
+BF16_FWD_VARIANTS = {
+    FA_BF16_PARENT: (("constexpr bool kMma = std::is_same<T, __nv_bfloat16>"
+                      "::value;", "constexpr bool kMma = false;"),),
+    "bf16 forward, one row block a warp at DP <= 128": (
+        ("static constexpr int MT = DP <= 128 && !MASK ? 2 : 1;",
+         "static constexpr int MT = 1;"),),
+    "bf16 forward, 4 warps at DP = 256": (
+        ("static constexpr int WARPS = DP <= 128 ? 4 : 8;",
+         "static constexpr int WARPS = 4;"),),
+    "bf16 forward, 32-key tiles at DP = 256": (
+        ("BQ = 16 * MT * WARPS, BK = 64;",
+         "BQ = 16 * MT * WARPS, BK = DP == 256 ? 32 : 64;"),),
+    "bf16 forward, 4 warps and 32-key tiles at DP = 256": (
+        ("static constexpr int WARPS = DP <= 128 ? 4 : 8;",
+         "static constexpr int WARPS = 4;"),
+        ("BQ = 16 * MT * WARPS, BK = 64;",
+         "BQ = 16 * MT * WARPS, BK = DP == 256 ? 32 : 64;")),
+    "bf16 forward, 32-key tiles at DP = 128": (
+        ("BQ = 16 * MT * WARPS, BK = 64;",
+         "BQ = 16 * MT * WARPS, BK = DP == 128 ? 32 : 64;"),),
+    "bf16 forward, S's d loop unrolled by two": (
+        ("#pragma unroll\n    for (int kk = 0; kk < DP / 16; ++kk) {\n"
+         "      uint32_t a[MT][4];",
+         "#pragma unroll 2\n    for (int kk = 0; kk < DP / 16; ++kk) {\n"
+         "      uint32_t a[MT][4];"),),
+    "bf16 forward, O rescaled only when a max moved": (
+        ("    // O *= alpha (1 where a row's max did not move)\n",
+         "    bool moved = false;\n"
+         "#pragma unroll\n"
+         "    for (int r = 0; r < 2 * MT; ++r) moved |= alpha[r] != 1.f;\n"
+         "    if (__any_sync(0xffffffffu, moved))\n"),),
+}
 FLASH_VARIANTS = {
     "committed": (),
     FA_FWD_PARENT: (_FA_FWD_ONE_TILE,),
@@ -783,11 +831,19 @@ FLASH_VARIANTS = {
                                                  _FA_DKV_TWO_BLOCKS),
     FA_TENSOR_CORES: ((_FA_SECTION, _FA_3XTF32),
                       (_FA_3XTF32_SMEM[0], _FA_3XTF32_SMEM[1])),
+    **BF16_FWD_VARIANTS,
 }
 # (B, S, H, D, causal, BERT's key mask) of the three fp32 oracles' attention
 FLASH_SHAPES = {"BERT oracle": (2, 512, 16, 64, False, True),
                 "GPT-2 oracle": (1, 1024, 12, 64, True, False),
                 "Llama oracle": (1, 1024, 16, 128, True, False)}
+# (B, S, H, D, causal) of the bf16 forward's: GPT-2's and Llama-2 7B's
+# training attention forced onto the FMA route, Gemma-7B's (16 heads of
+# 256) and an odd head dim at GPT-2's width
+BF16_SHAPES = {"GPT-2": (8, 1024, 12, 64, True),
+               "Llama-2 7B": (1, 2048, 32, 128, True),
+               "Gemma-7B D256": (1, 4096, 16, 256, True),
+               "D45": (8, 1024, 12, 45, True)}
 SOURCES = {"rms_norm": RMS_VARIANTS, "cross_entropy": CE_VARIANTS,
            "flash_attention": FLASH_VARIANTS}
 
@@ -834,6 +890,10 @@ def variant_sources(names=tuple(SOURCES)) -> dict:
     return out
 
 
+# nvcc's output (ptxas -v) of each copy built, by (source, variant)
+BUILD_LOGS = {}
+
+
 def _build_all(out_dir: Path, names) -> dict:
     sys.path.insert(0, str(REPO))
     from paddle_tpu_torch.ops.kernels import _build
@@ -853,6 +913,7 @@ def _build_all(out_dir: Path, names) -> dict:
     for key, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         (out_dir / f"ptxas_{lib.stem}.txt").write_text(log)
+        BUILD_LOGS[key] = log
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {key}:\n{log[-4000:]}")
         cdll = ctypes.CDLL(str(lib))
@@ -1013,7 +1074,7 @@ def ab_flash(libs, gen) -> dict:
     # the outputs a copy may change: those of the pass on the tensor cores
     free = {FA_FWD_TENSOR_CORES: ("out", "lse"),
             FA_TENSOR_CORES: ("dq", "dk", "dv")}
-    names = list(FLASH_VARIANTS)
+    names = [n for n in FLASH_VARIANTS if n not in BF16_FWD_VARIANTS]
     load = _build.load
     res = {}
     try:
@@ -1080,6 +1141,69 @@ def ab_flash(libs, gen) -> dict:
     return res
 
 
+def ab_flash_bf16(libs, gen) -> dict:
+    """The bf16 forward of the FMA route in every BF16_FWD_VARIANTS copy
+    at BF16_SHAPES: ptxas's registers and spills of each copy's
+    fwd_mma_kernel, out and lse held to the plain version within
+    chip_smoke.py's FLASH_RTOL and LSE_RTOL (the copies round p against
+    other running maxima, so not to the committed bits), then timed in
+    turns beside sdpa."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    cs = _chip_smoke()
+    names = ["committed", *BF16_FWD_VARIANTS]
+    for name in names:
+        rep = cs.ptxas_report(BUILD_LOGS[("flash_attention", name)])
+        print(f"  ptxas {name}: " + ", ".join(
+            f"{r['kernel']} {r.get('registers')} registers, spills "
+            f"{r.get('spill_stores')}/{r.get('spill_loads')} B"
+            for r in rep["kernels"] if "fwd_mma_kernel" in r["kernel"]),
+            flush=True)
+    load = _build.load
+    res = {}
+    try:
+        for label, (b, s, h, d, causal) in BF16_SHAPES.items():
+            q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                       .bfloat16() for _ in range(3))
+            scale = 1.0 / math.sqrt(d)
+            out, lse = fa.flash_fwd_plain(q, k, v, causal, scale)
+
+            def run(name):
+                _build.load = lambda _, n=name: libs[("flash_attention", n)]
+                return fa._fwd_launch(q, k, v, causal, scale, 0.0, None,
+                                      route="fma")
+            shares = {}
+            for name in names:
+                got = run(name)
+                torch.cuda.synchronize()
+                shares[name] = [
+                    cs._tolerance_share(o, g, want, tol)[1]
+                    for o, g, want, tol in (
+                        ("out", got[0], out,
+                         cs.FLASH_RTOL["fwd"][torch.bfloat16]),
+                        ("lse", got[1], lse, cs.LSE_RTOL))]
+                if max(shares[name]) > 1.0:
+                    raise AssertionError(f"bf16 forward {name} at {label}: "
+                                         f"share {shares[name]} of the "
+                                         "tolerance")
+            del out, lse
+            torch.cuda.empty_cache()
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            entry = {"share_of_rtol": shares, "fwd": _in_turns(
+                names, run, reps=10, iters=5)}
+            entry["sdpa_ms"] = [_time_graph_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal), 10, 5) for _ in range(2)]
+            print(f"  flash_fwd bf16 {label}: " + ", ".join(
+                f"{n} {t[0]:.4f}/{t[1]:.4f}" for n, t in entry["fwd"].items())
+                + f" ms; sdpa {entry['sdpa_ms'][0]:.4f}/"
+                f"{entry['sdpa_ms'][1]:.4f} ms", flush=True)
+            res[label] = entry
+    finally:
+        _build.load = load
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(REPO / "build" / "chip_ab"))
@@ -1109,6 +1233,8 @@ def main(argv=None) -> int:
     report = {"card": card}
     for name in names:
         report[name] = runs[name](libs, gen)
+    if "flash_attention" in names:
+        report["flash_attention_bf16"] = ab_flash_bf16(libs, gen)
     (out_dir / "chip_ab.json").write_text(json.dumps(report, indent=1))
     return 0
 

@@ -14,7 +14,8 @@ Phases, each fatal on failure:
    registers, spills and warnings for each tensor-core flash kernel, and
    its SASS's HGMMAs, wgmma waits and global loads; for the FMA route's
    fp32 forward, dq and dkv (``fwd_fp32_kernel``, ``dq_fp32_kernel``,
-   ``dkv_fp32_kernel``) registers, spills and the SASS's HMMA, FFMA and
+   ``dkv_fp32_kernel``) and its bf16 forward (``fwd_mma_kernel``,
+   mma.sync) registers, spills and the SASS's HMMA, FFMA and
    shared-load instructions.
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (RMSNorm forward, and its backward from the
@@ -26,9 +27,11 @@ Phases, each fatal on failure:
    cell's (B8 S2048 H16 D128) training shapes, the fp32 attention of the
    GPT-2, BERT and Llama oracles (FMA), GQA, padded lengths, rows
    that see no key, a single query, head dims of 32, 50 (fp32, rows off
-   16-byte boundaries), 96 and 160, and
+   16-byte boundaries), 96, 160 and 256 (GQA; and Gemma-7B's attention,
+   B1 S4096 H16, timed), 45 in bf16 (rows only 2-byte aligned, with
+   dropout), bf16 operands at a 2-byte storage offset, and
    dropout (also at D = 128), whose keep-mask must match exactly in fp32
-   and bf16; with an additive bias: BERT-large's key mask, a full bias
+   and bf16 (on both routes); with an additive bias: BERT-large's key mask, a full bias
    whose dbias the dq kernels emit, a broadcast one with dropout, rows
    that an infinite bias hides; with packed segments, per-segment causal,
    also with unequal q and k lengths; the softmax cross-entropy forward
@@ -44,8 +47,9 @@ Phases, each fatal on failure:
    kernels, sdpa's backward alone; at BERT's shape sdpa takes the same
    float attn_mask and dropout rate). Every check holds entry by entry
    (``check_close``: rtol of |plain| + rms(plain)), but for the bf16
-   backward at Llama's shape (``check_exact``: no further from the fp64
-   result than 1.25x the plain version's own distance); dbias is held
+   backward at Llama-2 7B's and BERT-large's shapes (``check_exact``: no
+   further from the fp64 result, bias and dropout included, than 1.25x
+   the plain version's own distance); dbias is held
    tighter than a bf16-rounded dbias could pass. Each flash case must
    launch exactly the kernels of ``flash_route``'s choice, a bias call
    their bias instantiations, each counted on its own counter; a bias of
@@ -166,7 +170,11 @@ Phases, each fatal on failure:
       parameter must equal its fp32 master rounded to bf16 bit for bit,
       and every step must launch the train cell's kernels (12/12/12
       wgmma flash, 25 LayerNorm, 1/1 CE). Prints the global norm before
-      clipping at each step, ms/step, tokens/s and peak memory.
+      clipping at each step, ms/step, tokens/s and peak memory. Then
+      the clip engaged on bf16 gradients: 2 layers, 3 O2 steps with
+      ``ClipGradByGlobalNorm`` at half the first step's global norm; the
+      norm after clipping within 1 % of the clip norm at every step, the
+      bf16 parameters their rounded masters, the launches of two layers.
    c. run_steps (cell ``gpt2s-bf16-run-steps-k4-m2``), bf16 parameters,
       AdamW(3e-4, weight decay 0.01 off biases and norms):
       ``create_multistep_train_step(steps=4)`` must equal 4
@@ -482,15 +490,22 @@ def check_exact(name, got, plain, exact, ratio, quiet=False):
     return err, used
 
 
-def exact_bwd(q, k, v, do, lse, delta, causal: bool, scale: float):
+def exact_bwd(q, k, v, do, lse, delta, causal: bool, scale: float,
+              rate: float = 0.0, seed=None, bias=None):
     """(dq, dk, dv) in fp64 of the same bf16 inputs, lse and delta: the
-    plain backward's formulas with no rounding on the way (no GQA, bias,
-    segments or dropout)."""
+    plain backward's formulas with no rounding on the way, the additive
+    ``bias`` (broadcast to [B, H, Sq, Sk]) added to the scaled scores and
+    the dropout keep-mask of ``seed`` at ``rate`` applied to dP and to
+    the p of dV (no GQA or segments)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     if q.shape[2] != k.shape[2]:
         raise ValueError("exact_bwd: q and k/v heads must match")
     qd, kd, vd, dod = (t.double().transpose(1, 2) for t in (q, k, v, do))
-    sq, sk = q.shape[1], k.shape[1]
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
     s = qd @ kd.transpose(-1, -2) * scale
+    if bias is not None:
+        s = s + bias.double().expand(b, h, sq, sk)
     if causal:
         i = torch.arange(sq, device=q.device)[:, None]
         j = torch.arange(sk, device=q.device)[None, :]
@@ -498,10 +513,20 @@ def exact_bwd(q, k, v, do, lse, delta, causal: bool, scale: float):
     lse_d = lse.double()[..., None]
     p = torch.exp(s - torch.where(torch.isneginf(lse_d), 0.0, lse_d))
     del s
-    ds = p * (dod @ vd.transpose(-1, -2) - delta.double()[..., None])
+    dp = dod @ vd.transpose(-1, -2)
+    p_v = p
+    if rate > 0.0:
+        keep = fa.dropout_keep_mask(seed, b * h, sq, sk, rate).reshape(
+            b, h, sq, sk)
+        keep_scale = fa._keep_scale(rate)
+        dp = torch.where(keep, dp * keep_scale, 0.0)
+        p_v = torch.where(keep, p * keep_scale, 0.0)
+        del keep
+    ds = p * (dp - delta.double()[..., None])
+    del dp
     dq = ds @ kd * scale
     dk = ds.transpose(-1, -2) @ qd * scale
-    dv = p.transpose(-1, -2) @ dod
+    dv = p_v.transpose(-1, -2) @ dod
     return tuple(t.transpose(1, 2) for t in (dq, dk, dv))
 
 
@@ -612,7 +637,9 @@ def flash_bound(kind, b, sq, sk, hq, hk, d, dtype, causal, bias_bytes=0,
 # "seg" gives packed segment lengths of q and of k, and then ``causal``
 # is each segment's own diagonal, as flash_attention_ext takes it;
 # "bwd": "exact" holds dq, dk and dv with check_exact in place of
-# check_close
+# check_close; "offset": q, k, v, dO start that many elements past a
+# 16-byte boundary (contiguous all the same), which sends bf16 to the FMA
+# route
 FLASH_CASES = [
     ("gpt2-train", 8, 1024, 1024, 12, 12, 64, torch.bfloat16, True, 0.0),
     ("llama7b", 1, 2048, 2048, 32, 32, 128, torch.bfloat16, True, 0.0,
@@ -640,6 +667,15 @@ FLASH_CASES = [
      torch.bfloat16, False, 0.1),
     ("one-query-1/300-bf16", 1, 1, 300, 4, 2, 64, torch.bfloat16, True, 0.0),
     ("d160-bf16", 1, 256, 256, 4, 2, 160, torch.bfloat16, True, 0.0),
+    # the FMA route's bf16 forward (fwd_mma_kernel) at its edges: D = 256
+    # with GQA; an odd head dim, whose rows start only 2 bytes apart,
+    # ragged, with dropout; D = 64 on operands 2 bytes past a 16-byte
+    # boundary; and Gemma-7B's attention (16 heads of 256), timed
+    ("d256-bf16", 1, 512, 512, 8, 2, 256, torch.bfloat16, True, 0.0),
+    ("d45-odd-bf16", 2, 200, 333, 4, 2, 45, torch.bfloat16, True, 0.1),
+    ("misaligned-d64-bf16", 2, 200, 333, 4, 2, 64, torch.bfloat16, True,
+     0.0, {"offset": 1}),
+    ("gemma7b-d256", 1, 4096, 4096, 16, 16, 256, torch.bfloat16, True, 0.0),
     # additive bias and segments. BERT-large's attention (its padding mask
     # as a [B, 1, 1, S] key bias at 0 / -1e9; then with the model's
     # dropout 0.1, the kernels its train cell launches; and the fp32
@@ -650,9 +686,9 @@ FLASH_CASES = [
     # packed segments with per-segment causal (and the fp32 twin), also
     # with unequal q and k lengths (the reference's ragged case)
     ("bert-large-keymask", 16, 512, 512, 16, 16, 64, torch.bfloat16, False,
-     0.0, {"bias": "keymask"}),
+     0.0, {"bias": "keymask", "bwd": "exact"}),
     ("bert-keymask-dropout", 16, 512, 512, 16, 16, 64, torch.bfloat16, False,
-     0.1, {"bias": "keymask"}),
+     0.1, {"bias": "keymask", "bwd": "exact"}),
     ("bert-oracle-keymask-fp32", 2, 512, 512, 16, 16, 64, torch.float32,
      False, 0.0, {"bias": "keymask"}),
     # the attention of the GPT-2 and Llama fp32 oracles (one 1024-token
@@ -703,18 +739,26 @@ LSE_RTOL = 3e-7                         # lse is fp32 at every dtype
 # another order: held far tighter than the bf16 dq, between the readings
 # and the same dbias rounded to bf16, which must fail it (PERF.md)
 DBIAS_RTOL = {torch.float32: 5e-6, torch.bfloat16: 1e-4}
-# check_exact's limit for the bf16 backward at Llama-2 7B's shape, where
-# the entry-wise distance to the plain version passed on some draws only:
-# the kernel no further from fp64 than this many times the plain
-# version's own distance. Both routes read 1.000-1.002 over seeds 0-3
-# (PERF.md); 0.25 of room above 1 leaves a missing key tile failing it
+# check_exact's limit for the bf16 backward at Llama-2 7B's shape and at
+# BERT-large's (its key mask, with and without dropout, in the fp64
+# backward too), where the entry-wise distance to the plain version
+# passed on some draws only: the kernel no further from fp64 than this
+# many times the plain version's own distance. Both routes read
+# 1.000-1.002 at Llama's shape over seeds 0-3 (PERF.md); 0.25 of room
+# above 1 leaves a missing key tile failing it
 BWD_EXACT_RATIO = 1.25
 
 
-def _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype):
+def _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype, offset=0):
+    """q, k, v, dO; each a contiguous view ``offset`` elements into its
+    storage."""
     dev = torch.device("cuda")
-    mk = lambda s, h: torch.randn(b, s, h, d, device=dev,  # noqa: E731
-                                  generator=gen).to(dtype)
+
+    def mk(s, h):
+        if not offset:
+            return torch.randn(b, s, h, d, device=dev, generator=gen).to(dtype)
+        x = torch.randn(b * s * h * d + offset, device=dev, generator=gen)
+        return x.to(dtype)[offset:].view(b, s, h, d)
     return mk(sq, hq), mk(sk, hk), mk(sk, hk), mk(sq, hq)
 
 
@@ -759,10 +803,11 @@ def _flash_case(fa, gen, case):
     the share of its tolerance each check used)."""
     name, b, sq, sk, hq, hk, d, dtype, causal, rate = case[:10]
     extras = case[10] if len(case) > 10 else {}
-    q, k, v, do = _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype)
+    q, k, v, do = _flash_inputs(gen, b, sq, sk, hq, hk, d, dtype,
+                                extras.get("offset", 0))
     seed = torch.tensor([987654321], dtype=torch.int32, device="cuda")
     scale = 1.0 / math.sqrt(d)
-    route = fa.flash_route(dtype, d)
+    route = fa.flash_route(dtype, d, [t.data_ptr() for t in (q, k, v, do)])
     bias, seg = None, None
     if "bias" in extras:
         bias = _flash_bias(gen, extras["bias"], b, sq, sk, hq)
@@ -776,6 +821,8 @@ def _flash_case(fa, gen, case):
         + (f" bias {extras['bias']} {list(bias.shape)}" if bias is not None
            else "")
         + (f" segments {extras['seg']} causal={seg.causal}" if seg else "")
+        + (f" at storage offset {extras['offset']}" if "offset" in extras
+           else "")
         + f"; route {route}")
     outp, lsep = fa.flash_fwd_plain(q, k, v, causal, scale, rate, seed,
                                     bias, seg)
@@ -785,8 +832,8 @@ def _flash_case(fa, gen, case):
     dqp, dbp = dqp if dbias else (dqp, None)
     dkp, dvp = fa.flash_dkv_plain(q, k, v, do, lsep, delta, *args)
     tol = FLASH_RTOL["bwd"][dtype]
-    exact = (exact_bwd(q, k, v, do, lsep, delta, causal, scale)
-             if extras.get("bwd") == "exact" else None)
+    exact = (exact_bwd(q, k, v, do, lsep, delta, causal, scale, rate, seed,
+                       bias) if extras.get("bwd") == "exact" else None)
     e, u = {}, {}
 
     def hold_bwd(name, got, ref, i):
@@ -840,6 +887,10 @@ def _flash_case(fa, gen, case):
     sfx = _sfx(route) + ("_keybias" if keys else
                          "_bias" if bias is not None else "")
     expect = {f"flash_{kind}{sfx}": 1 for kind in ("fwd", "dq", "dkv")}
+    if route == "fma" and dtype == torch.bfloat16:
+        # the FMA route's bf16 forward is fwd_mma_kernel
+        del expect[f"flash_fwd{sfx}"]
+        expect["flash_fwd_mma" + sfx] = 1
     if moved != expect:
         raise AssertionError(f"{name}: launches {moved}, expected {expect}")
     hold(_sfx(route), out, lse, dq, dk, dv, db)
@@ -1003,11 +1054,14 @@ FMA_KINDS = ("fwd", "dq", "dkv")
 # without the mask), and the "plane" bias class on the same mask
 # materialised as [B, 1, Sq, Sk]; the FMA kernels at the three fp32
 # oracles' shapes (BERT's with its key bias: the bias instantiations).
+# The FMA route's bf16 forward (fwd_mma_kernel) at GPT-2's, Llama-2 7B's
+# and BERT's shapes ("fwd" on a bf16 case) and at Gemma-7B's attention.
 # (key, case, kinds[, bias_as])
 FLASH_TIMED = (("gpt2", "gpt2-train", FLASH_KINDS),
                ("llama7b", "llama7b", FLASH_KINDS),
                ("llama07b_train", "llama-0.7b-train", WGMMA_KINDS),
-               ("bert", "bert-keymask-dropout", WGMMA_KINDS),
+               ("bert", "bert-keymask-dropout", WGMMA_KINDS + ("fwd",)),
+               ("gemma7b_d256", "gemma7b-d256", ("fwd",)),
                ("bert_no_dropout", "bert-large-keymask", WGMMA_KINDS),
                ("bert_nobias", "bert-keymask-dropout", WGMMA_KINDS, "none"),
                ("bert_nobias_no_dropout", "bert-large-keymask", WGMMA_KINDS,
@@ -1024,7 +1078,7 @@ def phase_flash(fa, gen):
     """Flash kernels vs their plain versions on every case of FLASH_CASES
     (each on the route ``flash_route`` picks, and on a wgmma case the FMA
     kernels as well), the dropout keep-mask read back exactly in
-    fp32 (FMA) and bf16 (wgmma), then the kernels timed at FLASH_TIMED's
+    fp32 (FMA) and bf16 (wgmma and FMA), then the kernels timed at FLASH_TIMED's
     shapes. Returns (timing rows by FLASH_TIMED's key, each with its
     case's max |kernel - plain|; max |kernel - plain| by case and kernel,
     the share of its tolerance each check used)."""
@@ -1044,17 +1098,21 @@ def phase_flash(fa, gen):
         v = torch.eye(s, device="cuda")[None, :, None, :].expand(
             b, s, h, d).contiguous().to(dtype)
         seed = torch.tensor([-424242], dtype=torch.int32, device="cuda")
-        out, _ = fa.flash_fwd(q, k, v, False, 1.0 / math.sqrt(d), rate, seed)
-        got = (out != 0).permute(0, 2, 1, 3).reshape(b * h, s, s)
         keep = fa.dropout_keep_mask(seed, b * h, s, s, rate)
-        if not torch.equal(got, keep):
-            raise AssertionError(
-                f"dropout keep-mask ({str(dtype)[6:]}) differs at "
-                f"{int((got != keep).sum())} of {keep.numel()}")
-        log(f"  flash dropout keep-mask {str(dtype)[6:]} "
-            f"({fa.flash_route(dtype, d)} kernel): identical at all "
-            f"{keep.numel()} positions ({1 - keep.float().mean().item():.4f}"
-            f" dropped, rate {rate})")
+        # bf16 on both routes: the wgmma forward and fwd_mma_kernel
+        for route in dict.fromkeys((fa.flash_route(dtype, d), "fma")):
+            out, _ = fa._fwd_launch(q, k, v, False, 1.0 / math.sqrt(d), rate,
+                                    seed, route=route)
+            got = (out != 0).permute(0, 2, 1, 3).reshape(b * h, s, s)
+            if not torch.equal(got, keep):
+                raise AssertionError(
+                    f"dropout keep-mask ({str(dtype)[6:]}, {route} route) "
+                    f"differs at {int((got != keep).sum())} of "
+                    f"{keep.numel()}")
+            log(f"  flash dropout keep-mask {str(dtype)[6:]} ({route} "
+                f"kernel): identical at all {keep.numel()} positions "
+                f"({1 - keep.float().mean().item():.4f} dropped, rate "
+                f"{rate})")
 
     timed = {}
     for key, name, kinds, *bias_as in FLASH_TIMED:
@@ -1489,6 +1547,8 @@ def _wrappers():
                     f"flash_{kind}_bias": w.bias,
                     f"flash_{kind}_wgmma_bias": w.wgmma_bias,
                     f"flash_{kind}_wgmma_keybias": w.wgmma_keybias})
+    out.update({"flash_fwd_mma": fa.flash_fwd.mma,
+                "flash_fwd_mma_bias": fa.flash_fwd.mma_bias})
     return out
 
 
@@ -2517,6 +2577,63 @@ def phase_trainloop_eager(seed, card, device="cuda"):
             "peak_mem_bytes": peak, "launches": counts, "card": card}
 
 
+def phase_trainloop_clip_bf16(seed, card, device="cuda"):
+    """The global-norm clip engaged on bf16 gradients: a 2-layer GPT-2
+    small after ``amp.decorate(level="O2")``, 3 eager steps of the
+    warmup-cosine AdamW with ``ClipGradByGlobalNorm`` at half the first
+    step's global norm. Every step's norm after clipping must be within
+    1 % of the clip norm (the bf16 gradients scaled, not dropped), every
+    bf16 parameter its fp32 master rounded, bit for bit, and every step
+    launch the train cell's kernels for two layers."""
+    from paddle_tpu_torch import amp
+    cfg, (model,) = _gpt2_twins(seed, 1, layers=2, device=device)
+    batch, seq, steps = 2, cfg.max_position_embeddings, 3
+    rng = np.random.RandomState(seed + 2)
+    ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq + 1)),
+                          device=device)
+    x, y = ids[:, :-1], ids[:, 1:]
+    sched, spy, opt = _eager_optimizer(model, 1.0)
+    amp.decorate(model, opt, level="O2", dtype="bfloat16")
+    # the first step's global norm, on the same parameters and batch
+    model.loss(x, y).backward()
+    first = float(_global_norm(
+        [(p, p.grad) for p in model.parameters()]))
+    opt.clear_grad()
+    clip_norm = first / 2
+    spy.clip.clip_norm = clip_norm
+    _reset_counts()                                  # counted run starts
+    for _ in range(steps):
+        loss = model.loss(x, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+    _sync(device)
+    counts = _counts()                               # counted run ends
+    before = [float(v) for v in spy.before]
+    after = [float(v) for v in spy.after]
+    log(f"  clip on bf16 gradients: clip_norm {clip_norm:.6f} (half of "
+        f"{first:.6f}); global norm before {['%.6f' % v for v in before]},"
+        f" after {['%.6f' % v for v in after]} [{card}]")
+    if not (before[0] > clip_norm and all(
+            abs(a - clip_norm) <= 1e-2 * clip_norm
+            for a, b_ in zip(after, before) if b_ > clip_norm)):
+        raise AssertionError(f"clip at {clip_norm}: norms before {before}, "
+                             f"after {after}")
+    unequal = [n for n, p in model.named_parameters()
+               if not torch.equal(p, opt._master_weights[p].to(p.dtype))]
+    if unequal:
+        raise AssertionError(f"bf16 parameters differ from their rounded "
+                             f"fp32 masters: {unequal[:5]}")
+    expect = _expected_counts(cfg.num_layers, steps, "wgmma")
+    if counts != expect:
+        raise AssertionError(f"launches {counts}, expected {expect}")
+    log(f"  clip on bf16 gradients: engaged at every step, within 1 % of "
+        f"the clip norm; bf16 parameters their rounded masters")
+    return {"clip_norm": clip_norm, "global_norm_before_clip": before,
+            "global_norm_after_clip": after, "launches": counts}
+
+
 def _sync(device):
     if device == "cuda":
         torch.cuda.synchronize()
@@ -2891,9 +3008,11 @@ def main(argv=None) -> int:
     ptxas_fp32 = ptxas_report(fma_log, sass_of(
         _build.library_path("flash_attention")))
     for row in ptxas_fp32["kernels"]:
-        if "_fp32_kernel<" in row["kernel"]:
+        if "_fp32_kernel<" in row["kernel"] or "mma_kernel<" in row["kernel"]:
             ops = ptxas_fp32["ops"].get(row["kernel"], {})
-            log(f"  ptxas {row['kernel']} (fp32 forward / dq / dkv, FMA "
+            what = ("bf16 forward" if "mma_kernel<" in row["kernel"]
+                    else "fp32 forward / dq / dkv")
+            log(f"  ptxas {row['kernel']} ({what}, FMA "
                 f"route): "
                 f"{row.get('registers')} registers, spill stores "
                 f"{row.get('spill_stores')} B, loads {row.get('spill_loads')}"
@@ -2935,6 +3054,10 @@ def main(argv=None) -> int:
                 max_abs_err=rows[f"flash_{kind}_keybias"]["max_abs_err"])
         for kind in FMA_KINDS:
             rows[f"flash_{kind}_bias"] = timed["bert_oracle_fp32"].pop(kind)
+        # the FMA route's bf16 forward at GPT-2's shape, and with BERT's
+        # key mask and dropout (its Mask instantiation)
+        rows["flash_fwd_mma"] = timed["gpt2"].pop("fwd")
+        rows["flash_fwd_mma_bias"] = timed["bert"].pop("fwd")
         report["flash_timings"] = timed
         torch.cuda.empty_cache()
         ce_rows, report["ce_bert"], report["ce_errors"], \
@@ -3009,6 +3132,9 @@ def main(argv=None) -> int:
         res[TRAINLOOP_EAGER_CELL] = phase_trainloop_eager(args.seed, card)
         by_path[TRAINLOOP_EAGER_CELL] = res[TRAINLOOP_EAGER_CELL]["launches"]
         torch.cuda.empty_cache()
+        res["clip_bf16"] = phase_trainloop_clip_bf16(args.seed, card)
+        by_path["gpt2s-bf16-O2-clip-2l"] = res["clip_bf16"]["launches"]
+        torch.cuda.empty_cache()
         res[TRAINLOOP_RUN_CELL] = phase_trainloop_run_steps(args.seed, card)
         by_path[TRAINLOOP_RUN_CELL] = res[TRAINLOOP_RUN_CELL]["launches"]
         res["phase_seconds"] = time.perf_counter() - t0
@@ -3049,6 +3175,10 @@ def main(argv=None) -> int:
         sources[f"flash_{kind}_bias"] = sources[f"flash_{kind}"]
     for kind in WGMMA_KINDS:
         sources[f"flash_{kind}_keybias"] = sources[f"flash_{kind}"]
+    # the FMA route's bf16 forward (fwd_mma_kernel), without and with the
+    # Mask; no main path launches it
+    sources["flash_fwd_mma"] = sources["flash_fwd_mma_bias"] = \
+        sources["flash_fwd"]
     report["launches_by_path"] = by_path
     kernels = []
     for name, (src, replaces) in sources.items():

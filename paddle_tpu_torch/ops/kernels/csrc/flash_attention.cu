@@ -36,7 +36,8 @@
 // 15 us to move the bytes. dq and dkv do 1.5x and 2x the forward's flops
 // on about the same bytes, so they are bound by operations.
 //
-// Design (simple and right, not yet fast): 256 threads as a 16 x 16 grid;
+// Design of the one-tile kernels (simple and right, not yet fast; fp32
+// above D = 128, bf16 dq and dkv): 256 threads as a 16 x 16 grid;
 // each thread owns a (BQ/16) x (BK/16) patch of the score tile and a
 // (rows/16) x (D/16) patch of the output or gradient tile. Tiles of Q, K,
 // V, dO and of P / dS live in shared memory as fp32 (bf16 converted on
@@ -44,16 +45,21 @@
 // collide on banks; the products are FMA loops over shared memory
 // (CUDA cores, not tensor cores). D is zero-padded to DP = 64, 128 or 256.
 // Row max and row sums are shuffles across the 16 threads of a row.
-// bf16 calls with head dims up to 128 take the tensor-core forward, dq
-// and dkv of flash_attention_sm90.cu instead (`flash_route`); this file
-// serves fp32, wider heads and strides TMA cannot take. Here fwd_kernel,
-// dq_kernel and dkv_kernel run the bf16 calls and head dims above 128,
-// and fp32 up to D = 128 takes fwd_fp32_kernel, dq_fp32_kernel and
-// dkv_fp32_kernel: the same sums in the same order (so the same bits),
-// with operands blocked in registers and fed by a cp.async ring.
-// Tensor-core products (3xTF32) cannot hold the fp32 contract's
-// tolerance, so fp32 stays on FFMA. Both sources share the dropout hash
-// of flash_common.cuh.
+// bf16 calls with head dims that are multiples of 8 up to 128 and 16-byte
+// aligned operands take the tensor-core forward, dq and dkv of
+// flash_attention_sm90.cu instead (`flash_route`); this file serves fp32,
+// wider heads and strides TMA cannot take. Here:
+// - the bf16 forward at every head dim (1 .. 256) and alignment is
+//   fwd_mma_kernel: mma.sync m16n8k16 on the tensor cores behind a
+//   cp.async ring (its section below);
+// - bf16 dq and dkv are dq_kernel and dkv_kernel;
+// - fp32 up to D = 128 takes fwd_fp32_kernel, dq_fp32_kernel and
+//   dkv_fp32_kernel: the one-tile kernels' sums in the same order (so the
+//   same bits), with operands blocked in registers and fed by a cp.async
+//   ring; fp32 above D = 128 the one-tile fwd_kernel, dq_kernel and
+//   dkv_kernel. Tensor-core products (3xTF32) cannot hold the fp32
+//   contract's tolerance, so fp32 stays on FFMA.
+// Both sources share the dropout hash of flash_common.cuh.
 #include "common.cuh"
 #include "flash_common.cuh"
 
@@ -1231,6 +1237,398 @@ dkv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 forward on the tensor cores: mma.sync behind a cp.async ring
+// ---------------------------------------------------------------------------
+//
+// Every bf16 forward of the FMA route (head dims 1 .. 256, any alignment,
+// bias, segments, dropout, GQA, causal): what TMA and wgmma cannot take.
+// - Products: mma.sync m16n8k16 (bf16 operands, fp32 sums), operands
+//   from shared memory by ldmatrix (ldmatrix.trans for V, whose rows are
+//   keys). Each warp owns MT blocks of 16 query rows and keeps their S
+//   (16 x BK) and O (16 x DP) accumulators in registers; each K and V
+//   fragment it reads serves its MT row blocks. The online softmax runs
+//   in registers in the exp2 domain (fwd_sm90_kernel's arithmetic: the
+//   bias added in natural units, then log2(e); without the Mask the max
+//   is taken on the raw products and the scale joins in the exponent's
+//   FFMA), row max and sum over the quad of lanes sharing a row. P is
+//   rounded to bf16 in
+//   registers and fed to O += P.V as the A fragment (FlashAttention-2),
+//   the contract's "p rounded to v's dtype"; dropout is applied to each
+//   accumulator element at its (row, key) from the fragment layout.
+// - Tiles stay bf16: Q [BQ][DP + 8] and a ring of two K and V stages
+//   [BK][DP + 8], D zero-padded to DP = 64, 128 or 256; the 16 bytes
+//   past each row put the eight rows of an ldmatrix on distinct banks.
+//   Each copy is the widest of 16, 8 or 4 bytes that every row start
+//   allows (mma_copy_width); rows only 2-byte aligned (odd D) are loaded
+//   and stored element by element. The next K/V tile is copied while this
+//   one's products run: one barrier a tile.
+// - MmaTile: 64-key tiles; at DP <= 128, 4 warps of two row blocks (q
+//   tiles of 128 rows), of one under the Mask (its bias rows and segment
+//   words spilled beside two); at DP = 256, 8 warps of one row block (O
+//   alone takes 128 registers a thread), 198 KB of shared memory. Q
+//   fragments are read again for every tile. The alternatives
+//   `chip_ab.py` times were slower on an H100 (PERF.md).
+// - A warp skips a key tile its rows cannot see (causal); q tiles run
+//   longest first across the grid, as fwd_fp32_kernel's.
+
+template <int DP, bool MASK>
+struct MmaTile {
+  static constexpr int WARPS = DP <= 128 ? 4 : 8;
+  static constexpr int MT = DP <= 128 && !MASK ? 2 : 1;   // 16-row blocks a warp
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BQ = 16 * MT * WARPS, BK = 64;
+  static constexpr int LD = DP + 8;                 // bf16 a shared row
+  static constexpr int Q_ELEMS = BQ * LD, KV_ELEMS = BK * LD;
+  static constexpr size_t SMEM = sizeof(__nv_bfloat16) * (Q_ELEMS + 4 * KV_ELEMS);
+};
+
+// The widest copy, in bytes, that every row of the three operands starts
+// on: rows lie 2 D bytes apart from their tensor's base.
+__device__ __forceinline__ int mma_copy_width(const void* a, const void* b,
+                                              const void* c, int D) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(a) |
+                         reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(c) |
+                         static_cast<uintptr_t>(2 * D);
+  return (bits & 15) == 0 ? 16 : (bits & 7) == 0 ? 8 : (bits & 3) == 0 ? 4 : 2;
+}
+
+// copy W bytes (or 0: zero-fill) from global src to shared dst
+template <int W>
+__device__ __forceinline__ void cp_async_w(void* dst, const void* src,
+                                           int bytes) {
+  if constexpr (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "n"(W), "r"(bytes)
+                 : "memory");
+}
+
+template <int ROWS, int DP, int LD, int NT, int W>
+__device__ __forceinline__ void copy_bf16_rows(uint16_t* dst,
+                                               const uint16_t* base,
+                                               size_t stride, int s0, int S,
+                                               int D) {
+  constexpr int E = W / 2, CH = DP / E;             // elements a copy, copies a row
+#pragma unroll 4
+  for (int it = 0; it < ROWS * CH / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    const int r = i / CH, c = (i % CH) * E, s = s0 + r;
+    const bool ok = s < S && c < D;
+    cp_async_w<W>(dst + r * LD + c,
+                  ok ? base + static_cast<size_t>(s) * stride + c : base,
+                  ok ? W : 0);
+  }
+}
+
+// Rows [s0, s0 + ROWS) of one head of a [batch, S, H, D] bf16 tensor (base
+// = &t[b, 0, h, 0], row stride `stride` elements) into a [ROWS][LD] tile,
+// zero past S and past D (up to DP): cp.async copies of W = 16, 8 or 4
+// bytes, or at W = 2 plain loads and shared stores.
+template <int ROWS, int DP, int LD, int NT>
+__device__ __forceinline__ void load_bf16_tile(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               size_t stride, int s0, int S,
+                                               int D, int W) {
+  uint16_t* d = reinterpret_cast<uint16_t*>(dst);
+  const uint16_t* base = reinterpret_cast<const uint16_t*>(src);
+  if (W == 16) {
+    copy_bf16_rows<ROWS, DP, LD, NT, 16>(d, base, stride, s0, S, D);
+  } else if (W == 8) {
+    copy_bf16_rows<ROWS, DP, LD, NT, 8>(d, base, stride, s0, S, D);
+  } else if (W == 4) {
+    copy_bf16_rows<ROWS, DP, LD, NT, 4>(d, base, stride, s0, S, D);
+  } else {
+#pragma unroll 8
+    for (int it = 0; it < ROWS * DP / NT; ++it) {
+      const int i = it * NT + threadIdx.x;
+      const int r = i / DP, c = i % DP, s = s0 + r;
+      d[r * LD + c] = s < S && c < D ? base[static_cast<size_t>(s) * stride + c] : 0;
+    }
+  }
+}
+
+// four 8 x 8 bf16 matrices from shared memory, lanes 8 i .. 8 i + 7 giving
+// the row addresses of matrix i (.trans: each lane gets a column pair)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d[0..3] += A (16 x 16, row) . B (16 x 8, col), bf16 operands, fp32 sums.
+// Lane l (g = l / 4, t = l % 4) holds d at rows g and g + 8 (d[0], d[1] and
+// d[2], d[3]), columns 2 t and 2 t + 1.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// forward: grid (nq, B*Hq), q tiles of MmaTile<DP, MASK>::BQ rows
+template <int DP, bool MASK>
+__global__ void __launch_bounds__(MmaTile<DP, MASK>::THREADS, 1)
+fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+               Dims dm, float scale, int causal, Dropout dr, Mask mk) {
+  using TL = MmaTile<DP, MASK>;
+  constexpr int BQ = TL::BQ, BK = TL::BK, LD = TL::LD, NT = TL::THREADS;
+  constexpr int MT = TL::MT, NB = BK / 8;           // key blocks of 8 in a tile
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);  // [BQ][LD]
+  __nv_bfloat16* Ks = Qs + TL::Q_ELEMS;             // [2][BK][LD]: the ring
+  __nv_bfloat16* Vs = Ks + 2 * TL::KV_ELEMS;        // [2][BK][LD]
+
+  // block n of the grid (x fastest) takes head n % (B*Hq), q tile
+  // nq - 1 - n / (B*Hq)
+  const int n = blockIdx.y * gridDim.x + blockIdx.x;
+  const int bh = n % static_cast<int>(gridDim.y);
+  const int q0 = (gridDim.x - 1 - n / static_cast<int>(gridDim.y)) * BQ;
+  const int b = bh / dm.Hq, h = bh % dm.Hq;
+  const int hk = h / (dm.Hq / dm.Hk);
+  const int offset = dm.Sk - dm.Sq;
+  const size_t qstride = static_cast<size_t>(dm.Hq) * dm.D;
+  const size_t kstride = static_cast<size_t>(dm.Hk) * dm.D;
+  const size_t qoff = (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
+  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const int width = mma_copy_width(q, k, v, dm.D);
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int row_base = q0 + 16 * MT * w;            // this warp's first row
+  const uint32_t seed_bh =
+      dr.on ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+  const float scale_log2 = scale * kLog2e;
+  // Without the Mask and with a positive scale the max is taken on the
+  // raw products (rounding is monotone) and the scale joins in the
+  // exponent's FFMA as c_exp; else the scores are scaled first (c_exp 1).
+  const bool raw = !MASK && scale_log2 > 0.f;
+  const float c_exp = raw ? scale_log2 : 1.f;
+
+  int nk = (dm.Sk + BK - 1) / BK;
+  if (causal) nk = causal_k_tiles<BQ, BK>(q0, offset, nk);
+  load_bf16_tile<BQ, DP, LD, NT>(Qs, q + qoff, qstride, q0, dm.Sq, dm.D, width);
+  if (nk > 0) {
+    load_bf16_tile<BK, DP, LD, NT>(Ks, kb, kstride, 0, dm.Sk, dm.D, width);
+    load_bf16_tile<BK, DP, LD, NT>(Vs, vb, kstride, 0, dm.Sk, dm.D, width);
+  }
+  cp_async_commit();
+
+  // row r of this lane's accumulators: row_base + 16 (r / 2) + l / 4 +
+  // 8 (r % 2), for r = 0 .. 2 MT - 1
+  auto row_of = [&](int r) { return row_base + 16 * (r >> 1) + (l >> 2) + 8 * (r & 1); };
+  // the bias rows of this lane's rows (NULL past Sq: no bias there)
+  [[maybe_unused]] const float* brow[2 * MT] = {};
+  if (MASK && mk.bias) {
+#pragma unroll
+    for (int r = 0; r < 2 * MT; ++r)
+      if (row_of(r) < dm.Sq) brow[r] = mk.bias + b * mk.sb + h * mk.sh + row_of(r) * mk.sq;
+  }
+
+  float o[MT][DP / 2];                              // DP / 8 column blocks x 4
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o[mt][i] = 0.f;
+  float m[2 * MT], lsum[2 * MT];                    // max in log2 units; this lane's sums
+#pragma unroll
+  for (int r = 0; r < 2 * MT; ++r) {
+    m[r] = -INFINITY;
+    lsum[r] = 0.f;
+  }
+  // ldmatrix row addresses: Q (A, 16 x 16), K (B of S, two 8-key blocks)
+  // and V (B of O, .trans, two 8-column blocks)
+  const __nv_bfloat16* qa = Qs + (16 * MT * w + (l & 15)) * LD + (l >> 4) * 8;
+  const int k_lane = ((l & 7) + ((l >> 4) << 3)) * LD + ((l >> 3) & 1) * 8;
+  const int v_lane = ((l & 7) + ((l >> 3) & 1) * 8) * LD + (l >> 4) * 8;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile has landed; the other stage is consumed
+    if (kt + 1 < nk) {
+      const int nxt = (kt + 1) & 1;
+      load_bf16_tile<BK, DP, LD, NT>(Ks + nxt * TL::KV_ELEMS, kb, kstride, k0 + BK,
+                                     dm.Sk, dm.D, width);
+      load_bf16_tile<BK, DP, LD, NT>(Vs + nxt * TL::KV_ELEMS, vb, kstride, k0 + BK,
+                                     dm.Sk, dm.D, width);
+      cp_async_commit();
+    }
+    // a tile past this warp's last causal diagonal adds nothing
+    if (causal && k0 > row_base + 16 * MT - 1 + offset) continue;
+    const __nv_bfloat16* Kt = Ks + (kt & 1) * TL::KV_ELEMS;
+    const __nv_bfloat16* Vt = Vs + (kt & 1) * TL::KV_ELEMS;
+
+    // S = Q K^T: for each row block, NB key blocks x 4
+    float sc[MT][BK / 2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[mt][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[mt], qa + 16 * mt * LD + 16 * kk);
+#pragma unroll
+      for (int nb = 0; nb < BK / 16; ++nb) {
+        uint32_t bq[4];
+        ldsm_x4(bq, Kt + 16 * nb * LD + k_lane + 16 * kk);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(sc[mt] + 8 * nb, a[mt], bq[0], bq[1]);
+          mma_bf16(sc[mt] + 8 * nb + 4, a[mt], bq[2], bq[3]);
+        }
+      }
+    }
+
+    // mask where the diagonal or the key edge cuts, and everywhere under
+    // the Mask, which also scales (and adds the bias) into the exp2 domain
+    const bool cut = MASK || k0 + BK > dm.Sk ||
+                     (causal && k0 + BK - 1 > row_base + offset);
+    if (!MASK && !raw) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sc[mt][i] *= scale_log2;
+    }
+    if (cut) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int i = 0; i < NB; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = k0 + 8 * i + 2 * (l & 3) + (j & 1);
+            const int rr = 2 * mt + (j >> 1), r = row_of(rr);
+            float& x = sc[mt][4 * i + j];
+            if constexpr (MASK) {
+              const float* br = brow[rr];
+              x = br != nullptr
+                      ? __fmul_rn(__fadd_rn(__fmul_rn(x, scale),
+                                            c < dm.Sk ? br[c * mk.sk] : 0.f),
+                                  kLog2e)
+                      : x * scale_log2;
+              if (!visible(mk, dm, b, r, c, causal, offset)) x = -INFINITY;
+            } else if (c >= dm.Sk || (causal && c > r + offset)) {
+              x = -INFINITY;
+            }
+          }
+    }
+
+    // online softmax over this lane's 2 MT rows
+    float mx[2 * MT];
+#pragma unroll
+    for (int r = 0; r < 2 * MT; ++r) mx[r] = -INFINITY;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        mx[2 * mt + ((i >> 1) & 1)] = fmaxf(mx[2 * mt + ((i >> 1) & 1)], sc[mt][i]);
+    float neg_m[2 * MT], alpha[2 * MT];
+#pragma unroll
+    for (int r = 0; r < 2 * MT; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]) * c_exp);
+      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = ex2_ftz(m[r] - m_safe);            // 0 while m was -inf
+      neg_m[r] = -m_safe;
+      m[r] = m_new;
+    }
+    // p, its row sums, and P (dropped) rounded to bf16 as the A fragments
+    // of O += P V
+    float rs[2 * MT];
+    uint32_t pa[MT][BK / 16][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      rs[2 * mt] = rs[2 * mt + 1] = 0.f;
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        float pv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int rr = 2 * mt + (j >> 1);
+          const float p = ex2_ftz(fmaf(sc[mt][4 * i + j], c_exp, neg_m[rr]));
+          rs[rr] += p;
+          pv[j] = p;
+          if (dr.on)
+            pv[j] = keep(seed_bh, row_of(rr), k0 + 8 * i + 2 * (l & 3) + (j & 1),
+                         dm.Sk, dr.thresh)
+                        ? p * dr.keep_scale
+                        : 0.f;
+        }
+        pa[mt][i >> 1][2 * (i & 1)] = pack_bf16(pv[0], pv[1]);
+        pa[mt][i >> 1][2 * (i & 1) + 1] = pack_bf16(pv[2], pv[3]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2 * MT; ++r) lsum[r] = alpha[r] * lsum[r] + rs[r];
+    // O *= alpha (1 where a row's max did not move)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[mt][i] *= alpha[2 * mt + ((i >> 1) & 1)];
+
+    // O += P V
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc)
+#pragma unroll
+      for (int nd = 0; nd < DP / 16; ++nd) {
+        uint32_t bv[4];
+        ldsm_x4_trans(bv, Vt + 16 * kc * LD + v_lane + 16 * nd);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(o[mt] + 8 * nd, pa[mt][kc], bv[0], bv[1]);
+          mma_bf16(o[mt] + 8 * nd + 4, pa[mt][kc], bv[2], bv[3]);
+        }
+      }
+  }
+  cp_async_wait<0>();
+
+  // out = O / l (0 where no key is seen), lse = m ln 2 + log l (-inf there);
+  // column pairs as one 4-byte store where out's rows allow
+  __nv_bfloat16* ob = out + qoff;
+  const bool pairs = ((reinterpret_cast<uintptr_t>(out) | (2u * dm.D)) & 3) == 0;
+#pragma unroll
+  for (int r = 0; r < 2 * MT; ++r) {
+    const float L = quad_sum(lsum[r]);
+    const float inv = L > 0.f ? 1.f / L : 0.f;
+    const int row = row_of(r);
+    if (row >= dm.Sq) continue;
+    if ((l & 3) == 0)
+      lse[static_cast<size_t>(bh) * dm.Sq + row] =
+          L > 0.f ? m[r] * kLn2 + logf(L) : -INFINITY;
+    __nv_bfloat16* orow = ob + static_cast<size_t>(row) * qstride;
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      const int c = 8 * i + 2 * (l & 3);
+      const float x0 = o[r >> 1][4 * i + 2 * (r & 1)] * inv;
+      const float x1 = o[r >> 1][4 * i + 2 * (r & 1) + 1] * inv;
+      if (pairs) {
+        if (c < dm.D)
+          *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(x0, x1);
+      } else {
+        if (c < dm.D) orow[c] = __float2bfloat16(x0);
+        if (c + 1 < dm.D) orow[c + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1275,9 +1673,26 @@ constexpr size_t fwd_ring_smem() {
 }
 
 // fp32 up to DP = 128 takes fwd_fp32_kernel, dq_fp32_kernel and
-// dkv_fp32_kernel; bf16 and DP = 256 the one-tile kernels
+// dkv_fp32_kernel; bf16 and DP = 256 the one-tile kernels, but for the
+// bf16 forward: fwd_mma_kernel at every DP
 template <typename T, int DP>
 constexpr bool kRing = std::is_same<T, float>::value && DP <= 128;
+template <typename T>
+constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+
+template <int DP, bool MASK>
+cudaError_t launch_fwd_mma(const Args& a, cudaStream_t s) {
+  using TL = MmaTile<DP, MASK>;
+  static bool smem_set = false;
+  const cudaError_t err = allow_smem(fwd_mma_kernel<DP, MASK>, TL::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const int nq = (a.dm.Sq + TL::BQ - 1) / TL::BQ;
+  fwd_mma_kernel<DP, MASK><<<dim3(nq, a.dm.B * a.dm.Hq), TL::THREADS, TL::SMEM, s>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<__nv_bfloat16*>(a.out),
+      a.lse_out, a.dm, a.scale, a.causal, a.dr, a.mk);
+  return cudaGetLastError();
+}
 
 template <typename T, int DP>
 cudaError_t launch_pass(Pass pass, const Args& a, cudaStream_t s) {
@@ -1291,6 +1706,10 @@ cudaError_t launch_pass(Pass pass, const Args& a, cudaStream_t s) {
   static bool smem_set[3][2] = {};
   const bool mask = a.mk.bias || a.mk.qseg || a.mk.dbias;
   cudaError_t err;
+  if constexpr (kMma<T>) {
+    if (pass == Pass::kFwd)
+      return mask ? launch_fwd_mma<DP, true>(a, s) : launch_fwd_mma<DP, false>(a, s);
+  }
   if (pass == Pass::kFwd) {
     if constexpr (kRing<T, DP>) {
       constexpr size_t smem = fwd_ring_smem<DP>();
@@ -1298,7 +1717,7 @@ cudaError_t launch_pass(Pass pass, const Args& a, cudaStream_t s) {
       if ((err = allow_smem(kern, smem, smem_set[0][mask])) != cudaSuccess) return err;
       kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
           q, k, v, static_cast<T*>(a.out), a.lse_out, a.dm, a.scale, a.causal, a.dr, a.mk);
-    } else {
+    } else if constexpr (!kMma<T>) {
       constexpr size_t smem = fwd_smem<DP>();
       auto kern = mask ? fwd_kernel<T, DP, BQ, BK, true> : fwd_kernel<T, DP, BQ, BK, false>;
       if ((err = allow_smem(kern, smem, smem_set[0][mask])) != cudaSuccess) return err;

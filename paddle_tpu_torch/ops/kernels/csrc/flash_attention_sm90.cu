@@ -162,8 +162,6 @@ using namespace ptk;
 constexpr int kThreads = 384;          // producer + two consumer warpgroups
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 // segment words of rows past Sq and keys past Sk: their ids (>> 16) are
 // negative and differ, so they see nothing (the reference's padding words)
 constexpr int kNoQuery = -(1 << 20);
@@ -219,15 +217,6 @@ __device__ __forceinline__ int fwd_key_tiles(const Dims& dm, int q0, int causal)
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Accumulator element j of n-block i of thread (w, l): row and column
@@ -565,13 +554,6 @@ fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 // ---------------------------------------------------------------------------
 // forward without bias or segments: grid (nq, B*Hq), CTAs in head groups
 // ---------------------------------------------------------------------------
-
-// 2^x by the SFU alone (no range fix-up; a p below 2^-126 flushes to 0)
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Tiles of 64 keys: O, S, P and the wgmma operands in flight stay inside
 // the registers ptxas keeps for them at DP = 128 (64 + 32 + 16; tiles of

@@ -123,6 +123,37 @@ inline Args make_args(const void* q, const void* k, const void* v, int B,
 #define PTK_MASK_ARGS \
   bias, bias_sb, bias_sh, bias_sq, bias_sk, qseg, kseg, seg_causal
 
+// The forward's exp2 domain: scores times log2(e), lse = m ln 2 + log l.
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x by the SFU alone (no range fix-up; a result below 2^-126 flushes
+// to 0)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// max / sum over the quad of lanes that hold one accumulator row (lanes
+// l ^ 1, l ^ 2)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Two fp32 values as one bf16x2 register (lo in the low half, to nearest
+// even), the packing of an mma.sync or wgmma A fragment.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory, once
 // (`done` is the flag of one kernel instantiation; no call happens inside
 // a graph capture that follows a warm-up launch).

@@ -168,14 +168,6 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// Two fp32 values as one bf16x2 register (lo in the low half), the packing
-// of a wgmma A fragment.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
 // D[64 x N] (+)= A[64 x 16] . B[16 x N] in fp32, bf16 operands, issued by
 // one warpgroup. _ss: A from shared memory (K-major); _rs: A from
 // registers. TRANS_B = 1 reads B MN-major. `accumulate` = 0 overwrites D.

@@ -11,8 +11,12 @@ shared ``Optimizer`` base does the rest as the reference's eager
 - the learning rate is ``get_lr()``: a float, or an ``LRScheduler``'s
   current value (the user steps the schedule);
 - weight decay ``_wd_coeff()`` (a float or an ``L1Decay``/``L2Decay``'s
-  ``coeff``) is added to the gradient as ``decay * p`` (L2), or, for the
-  decoupled rules (AdamW, Lamb), handed to ``_update`` as ``wd``;
+  ``coeff``) is added to the fp32 gradient: ``decay * p`` (p as stored,
+  cast to fp32) for a float or an ``L2Decay``, ``decay * sign(p)`` (the
+  gradient of the penalty ``coeff * sum(|p|)``, p the fp32 master where
+  there is one) for an ``L1Decay``; the decoupled rules (AdamW, Lamb)
+  take a float (or an ``L2Decay``) as ``wd`` of ``_update`` and refuse
+  an ``L1Decay``;
 - with ``multi_precision`` a parameter that is not fp32 is updated
   through an fp32 master copy (``_master_weights``), then rounded back
   once per step; without it the update still runs in fp32 and is cast
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 
 from ..core.flags import get_flag
+from ..regularizer import L1Decay
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "RMSProp", "Adam",
@@ -91,9 +96,15 @@ class Optimizer(torch.optim.Optimizer):
         if parameters is None:
             raise ValueError(f"{type(self).__name__}: parameters are "
                              f"required")
+        if isinstance(weight_decay, L1Decay) and \
+                self._decoupled_weight_decay():
+            raise ValueError(f"{type(self).__name__}: decoupled weight "
+                             f"decay takes a float, not an L1Decay")
         groups, self._names = _named_groups(parameters)
         self._lr = learning_rate
         self._weight_decay = weight_decay
+        # an L1Decay adds decay * sign(p) to the gradient, else decay * p
+        self._l1 = isinstance(weight_decay, L1Decay)
         self._grad_clip = grad_clip
         self._multi_precision = multi_precision
         self._master_weights: Dict[torch.Tensor, torch.Tensor] = {}
@@ -211,14 +222,14 @@ class Optimizer(torch.optim.Optimizer):
                     batches.setdefault(key, []).append((p, g))
                     continue
                 g32 = g.float()
+                p32 = self._master(p) if self._uses_master(p) else p.float()
                 if decay and not decoupled:
-                    g32 = g32 + decay * p.float()
+                    g32 = g32 + decay * (torch.sign(p32) if self._l1
+                                         else p.float())
                 wd = decay if decoupled else 0.0
+                new = self._update(p32, g32, state, lr, wd)
                 if self._uses_master(p):
-                    new = self._update(self._master(p), g32, state, lr, wd)
                     self._master_weights[p] = new
-                else:
-                    new = self._update(p.float(), g32, state, lr, wd)
                 p.copy_(new)
                 state["step"] += 1
             for (*_, decay, _), pairs in batches.items():
@@ -467,14 +478,14 @@ class Adam(Optimizer):
         states = [self.state[p] for p in params]
         master = self._uses_master(params[0])
         g = _fp32([g for _, g in pairs])
-        if decay and not decoupled:
-            g = torch._foreach_add(g, torch._foreach_mul(_fp32(params),
-                                                         decay))
         if master:
-            masters = [self._master(p) for p in params]
-            p32 = list(masters)
+            p32 = [self._master(p) for p in params]
         else:
             p32 = _fp32(params)
+        if decay and not decoupled:
+            g = torch._foreach_add(g, torch._foreach_mul(
+                torch._foreach_sign(p32) if self._l1 else _fp32(params),
+                decay))
         m1 = torch._foreach_mul(_fp32([s["moment1"] for s in states]), b1)
         torch._foreach_add_(m1, torch._foreach_mul(g, 1 - b1))
         m2 = torch._foreach_mul(_fp32([s["moment2"] for s in states]), b2)

@@ -2,8 +2,10 @@
 
 ``L1Decay``/``L2Decay`` carry a coefficient; handed to an optimizer as
 ``weight_decay``, their ``coeff`` is its weight-decay coefficient
-(``Optimizer._wd_coeff``). Called on a parameter, each returns its
-penalty: ``coeff * sum(|p|)`` and ``coeff / 2 * sum(p * p)``.
+(``Optimizer._wd_coeff``), and the optimizer adds their penalty's
+gradient to each gradient: ``coeff * sign(p)`` and ``coeff * p``. Called
+on a parameter, each returns its penalty: ``coeff * sum(|p|)`` and
+``coeff / 2 * sum(p * p)``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """chip_ab.py, the on-card A/B of the RMSNorm, CE and fp32 flash
-forward, dq and dkv kernels' design choices: every variant is a rewrite
+forward, dq and dkv kernels' design choices, and of the bf16 flash
+forward's on the FMA route: every variant is a rewrite
 of the committed source that still applies, so the script builds what
 its docstring names."""
 import importlib.util
@@ -127,3 +128,24 @@ def test_section_rewrite_replaces_from_start_to_end():
     assert ab._edit("a [x] b", ("[", "]"), "<y>") == "a <y>] b"
     with pytest.raises(ValueError, match="no longer holds"):
         ab._edit("a [x] [b]", ("[", "x"), "")
+
+
+def test_flash_variants_swap_the_bf16_forward_designs():
+    """The bf16 forward's copies: the parent's one-tile fwd_kernel takes
+    the bf16 forward (fwd_mma_kernel is never launched); the others change
+    one tile constant of ``MmaTile``, the S loop's unrolling or when O is
+    rescaled, and leave the fp32 kernels' text alone."""
+    ab = _chip_ab()
+    sources = ab.variant_sources(("flash_attention",))
+    committed = sources[("flash_attention", "committed")]
+    assert "fwd_mma_kernel<DP, MASK><<<" in committed
+    parent = sources[("flash_attention", ab.FA_BF16_PARENT)]
+    assert "constexpr bool kMma = false;" in parent
+    fp32 = committed[:committed.index("// bf16 forward on the tensor cores")]
+    for name in ab.BF16_FWD_VARIANTS:
+        text = sources[("flash_attention", name)]
+        assert text.startswith(fp32) and text != committed, name
+    both = sources[("flash_attention",
+                    "bf16 forward, 4 warps and 32-key tiles at DP = 256")]
+    assert "static constexpr int WARPS = 4;" in both
+    assert "BK = DP == 256 ? 32 : 64;" in both

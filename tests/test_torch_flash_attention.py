@@ -42,13 +42,16 @@ BWD = dict(rtol=1e-4, atol=1e-4)
 # tail and GQA 4/2; Sq > Sk with a padded query tail (causal: the first
 # Sq - Sk rows see no key, out = 0 and lse = -inf); non-causal GQA; a
 # head dim that is not a multiple of 4 (the rows of chip_smoke.py's
-# "d50-ragged-fp32", which no 16-byte copy can take)
+# "d50-ragged-fp32", which no 16-byte copy can take); the head dims of
+# the FMA route's bf16 forward at its edges, 256 (GQA) and odd 45
 CASES = [
     (2, 64, 64, 2, 2, 32, True),
     (1, 72, 200, 4, 2, 32, True),
     (1, 130, 70, 2, 2, 16, True),
     (1, 130, 70, 4, 2, 16, False),
     (1, 72, 200, 4, 2, 50, True),
+    (1, 40, 72, 4, 2, 256, True),
+    (1, 72, 100, 2, 2, 45, True),
 ]
 
 
@@ -347,6 +350,46 @@ def test_exact_check_passes_another_rounding_and_rejects_planted_faults():
             cs.check_exact("dkv", got, ref, ex, ratio, quiet=True)
 
 
+def test_exact_backward_takes_the_bias_and_dropout():
+    """chip_smoke.py's fp64 backward, which check_exact holds BERT-large's
+    bf16 backward to, adds a key bias to the scaled scores and applies the
+    dropout keep-mask to dP and to the p of dV: on fp32 inputs it agrees
+    with the plain dq / dkv (fp32 sums) to 2e-5; on bf16 inputs the
+    plain version passes check_exact against it, and a dv left undropped
+    fails."""
+    cs = _chip_smoke()
+    b, s, h, d, rate = 1, 128, 2, 32, 0.1
+    rng = np.random.RandomState(7)
+    mk = lambda: torch.from_numpy(rng.standard_normal(  # noqa: E731
+        (b, s, h, d)).astype(np.float32))
+    q, k, v, do = mk(), mk(), mk(), mk()
+    bias = torch.where(torch.arange(s) < 100, 0.0, -1e9).reshape(1, 1, 1, s)
+    seed = torch.tensor([31337], dtype=torch.int32)
+    scale = 1.0 / math.sqrt(d)
+    for dtype in (torch.float32, torch.bfloat16):
+        qq, kk, vv, dd = (t.to(dtype) for t in (q, k, v, do))
+        args = (False, scale, rate, seed, bias)
+        out, lse = tfa.flash_fwd_plain(qq, kk, vv, *args)
+        delta = (dd.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        got = (tfa.flash_dq_plain(qq, kk, vv, dd, lse, delta, *args),
+               *tfa.flash_dkv_plain(qq, kk, vv, dd, lse, delta, *args))
+        ex = cs.exact_bwd(qq, kk, vv, dd, lse, delta, False, scale, rate,
+                          seed, bias)
+        if dtype == torch.float32:
+            for g, e in zip(got, ex):
+                np.testing.assert_allclose(g.numpy(), e.numpy(), rtol=2e-5,
+                                           atol=2e-5)
+            continue
+        for g, e in zip(got, ex):
+            cs.check_exact("plain", g, g, e, cs.BWD_EXACT_RATIO, quiet=True)
+        _, dv_undropped = tfa.flash_dkv_plain(qq, kk, vv, dd, lse, delta,
+                                              False, scale, 0.0, None, bias)
+        with pytest.raises(AssertionError):
+            cs.check_exact("dv", dv_undropped, got[2], ex[2],
+                           cs.BWD_EXACT_RATIO, quiet=True)
+
+
 def test_llama_forward_matches_reference():
     """Llama's full-context forward now attends through the flash
     functional: llama_tiny (GQA 4/2) against paddle_tpu's forward."""
@@ -427,6 +470,7 @@ def _fake_library(name):
 @pytest.mark.parametrize("dtype,d,misaligned,entry", [
     (torch.bfloat16, 64, False, "sm90"), (torch.bfloat16, 96, False, "sm90"),
     (torch.bfloat16, 64, True, "fma"), (torch.bfloat16, 160, False, "fma"),
+    (torch.bfloat16, 256, False, "fma"), (torch.bfloat16, 45, False, "fma"),
     (torch.float32, 64, False, "fma"), (torch.float32, 128, False, "fma"),
     (torch.float32, 160, False, "fma")])
 def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
@@ -438,7 +482,11 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
     own kernel's counter; dq follows the route like the forward and
     dkv. fp32 reaches ``flash_dq`` / ``flash_dkv`` with the fp32 code at
     every head dim: the C entry picks the register-blocked kernels up to
-    128 (D = 64, 128) and the one-tile FFMA ones above (D = 160)."""
+    128 (D = 64, 128) and the one-tile FFMA ones above (D = 160). A bf16
+    forward on the FMA route (misaligned, D = 160, 256, 45) reaches
+    ``flash_fwd`` with the bf16 code, whose C entry launches
+    fwd_mma_kernel, and counts on ``flash_fwd.mma``, not on
+    ``flash_fwd``; its dq and dkv count on ``flash_dq`` / ``flash_dkv``."""
     libs = {n: _fake_library(n)
             for n in ("flash_attention", "flash_attention_sm90")}
     monkeypatch.setattr(_build, "load", libs.__getitem__)
@@ -446,8 +494,9 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
     q, k, v = _operands(dtype, d, 4, 2, misaligned)
     do = q.clone() if not misaligned else q
     lse = torch.zeros(1, 4, 8)
-    counters = (tfa.flash_fwd, tfa.flash_fwd.wgmma, tfa.flash_dq,
-                tfa.flash_dq.wgmma, tfa.flash_dkv, tfa.flash_dkv.wgmma)
+    counters = (tfa.flash_fwd, tfa.flash_fwd.wgmma, tfa.flash_fwd.mma,
+                tfa.flash_dq, tfa.flash_dq.wgmma, tfa.flash_dkv,
+                tfa.flash_dkv.wgmma)
     before = [c.launches for c in counters]
     tfa._fwd_launch(q, k, v, True, 0.125, 0.0, None)
     tfa._dq_launch(q, k, v, do, lse, lse, True, 0.125, 0.0, None)
@@ -456,7 +505,7 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
     sm90 = [fn for fn, _ in libs["flash_attention_sm90"].calls]
     fma = [fn for fn, args in libs["flash_attention"].calls]
     if entry == "sm90":
-        assert moved == [0, 1, 0, 1, 0, 1]
+        assert moved == [0, 1, 0, 0, 1, 0, 1]
         assert (sm90, fma) == (["flash_fwd_sm90", "flash_dq_sm90",
                                 "flash_dkv_sm90"], [])
         for fn, args in libs["flash_attention_sm90"].calls:
@@ -464,7 +513,8 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
                 is ctypes.c_int
             assert args[-2] == 0
     else:
-        assert moved == [1, 0, 1, 0, 1, 0]
+        mma = int(dtype == torch.bfloat16)
+        assert moved == [1 - mma, 0, mma, 1, 0, 1, 0]
         assert (sm90, fma) == ([], ["flash_fwd", "flash_dq", "flash_dkv"])
         codes = {args[-2] for _, args in libs["flash_attention"].calls}
         assert codes == {_build.DTYPE_CODES[dtype]}
@@ -472,7 +522,8 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
 
 def _all_counters():
     return [c for w in (tfa.flash_fwd, tfa.flash_dq, tfa.flash_dkv)
-            for c in (w, w.wgmma, w.bias, w.wgmma_bias, w.wgmma_keybias)]
+            for c in (w, w.wgmma, w.bias, w.wgmma_bias, w.wgmma_keybias)] + [
+        tfa.flash_fwd.mma, tfa.flash_fwd.mma_bias]
 
 
 def test_cpu_call_counts_no_launch_on_either_route():
@@ -525,6 +576,111 @@ def test_bias_launches_count_on_their_own_instantiation(monkeypatch, dtype,
         moved = [c.launches - b for c, b in zip(counters, before)]
         assert moved == [1 if any(c is m for m in moves) else 0
                          for c in counters]
+
+
+def test_fma_route_bf16_forward_counts_its_bias_instantiation(monkeypatch):
+    """On the FMA route a bf16 forward with a bias (fwd_mma_kernel's Mask
+    instantiation) counts on ``flash_fwd.mma_bias``, one with segment
+    words alone on ``flash_fwd.mma``; dq and dkv on ``.bias`` and on the
+    bias-free counters as before."""
+    libs = {n: _fake_library(n)
+            for n in ("flash_attention", "flash_attention_sm90")}
+    monkeypatch.setattr(_build, "load", libs.__getitem__)
+    monkeypatch.setattr(_build, "stream", lambda t: ctypes.c_void_p(0))
+    q, k, v = _operands(torch.bfloat16, 64, 4, 2, True)
+    lse = torch.zeros(1, 4, 8)
+    words = tfa.encode_segments(torch.zeros(1, 8, dtype=torch.int32))
+    seg = tfa.Segments(words, words, False)
+    fwd, dq, dkv = tfa.flash_fwd, tfa.flash_dq, tfa.flash_dkv
+    for mask, moves in (((torch.zeros(1, 1, 1, 8), None),
+                         (fwd.mma_bias, dq.bias, dkv.bias)),
+                        ((None, seg), (fwd.mma, dq, dkv))):
+        counters = _all_counters()
+        before = [c.launches for c in counters]
+        tfa._fwd_launch(q, k, v, False, 0.125, 0.0, None, *mask)
+        tfa._dq_launch(q, k, v, q, lse, lse, False, 0.125, 0.0, None, *mask)
+        tfa._dkv_launch(q, k, v, q, lse, lse, False, 0.125, 0.0, None, *mask)
+        moved = [c.launches - b for c, b in zip(counters, before)]
+        assert moved == [1 if any(c is m for m in moves) else 0
+                         for c in counters]
+    assert [fn for fn, _ in libs["flash_attention"].calls] == [
+        "flash_fwd", "flash_dq", "flash_dkv"] * 2
+
+
+def _mma_fwd(q, k, v, scale, causal, block=64, log2_lse=False):
+    """fwd_mma_kernel's order of work, in torch: key tiles of ``block``,
+    every fp32 sum of a product taken over 16-wide chunks of its
+    reduction (d for S, keys for P V), each chunk exact and added to the
+    fp32 accumulator, as m16n8k16 adds; the max of each tile taken on the
+    raw products and the scale c = fp32(scale * log2 e) joined in the
+    exponent as one rounding, p = 2^(s c - m) flushed below 2^-126,
+    rounded to bf16 against the running max before P V; the row sum from
+    the unrounded p; out = O * (1 / l), lse = m ln 2 + log l
+    (``log2_lse`` leaves the max in log2 units: a planted fault)."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    rep = h // hk
+    c = float(np.float32(np.float32(scale) * np.float32(math.log2(math.e))))
+    qd = q.double().permute(0, 2, 1, 3)
+    kd = k.double().permute(0, 2, 1, 3).repeat_interleave(rep, 1)
+    vd = v.double().permute(0, 2, 1, 3).repeat_interleave(rep, 1)
+
+    def chunked(a, bt):
+        acc = torch.zeros(a.shape[:-1] + bt.shape[-1:], dtype=torch.float32)
+        for c0 in range(0, a.shape[-1], 16):
+            acc = (acc.double() + a[..., c0:c0 + 16] @ bt[..., c0:c0 + 16, :]
+                   ).float()
+        return acc
+    m = torch.full((b, h, sq, 1), float("-inf"))
+    l = torch.zeros(b, h, sq, 1)
+    o = torch.zeros(b, h, sq, d)
+    rows = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, block):
+        s = chunked(qd, kd[:, :, k0:k0 + block].transpose(-1, -2))
+        cols = torch.arange(k0, min(k0 + block, sk))[None, :]
+        if causal:
+            s = s.masked_fill(cols > rows + (sk - sq), float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        m_safe = torch.where(m_new == float("-inf"), 0.0, m_new)
+        alpha = torch.exp2(m - m_safe)
+        x = (s.double() * c - m_safe.double()).float()       # one FFMA
+        p = torch.exp2(x)
+        p = torch.where(p < 2.0 ** -126, 0.0, p)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        pv = chunked(p.bfloat16().double(), vd[:, :, k0:k0 + block])
+        o = o * alpha + pv
+        m = m_new
+    inv = torch.where(l > 0, 1.0 / torch.where(l > 0, l, 1.0), 0.0)
+    out = (o * inv).permute(0, 2, 1, 3).to(q.dtype)
+    lse = torch.where(l > 0, (m if log2_lse else m * math.log(2))
+                      + torch.log(torch.where(l > 0, l, 1.0)),
+                      float("-inf"))
+    return out, lse[..., 0]
+
+
+@pytest.mark.parametrize("d,sq,sk,hq,hk", [(256, 130, 200, 4, 2),
+                                           (45, 200, 130, 2, 2)])
+def test_mma_forward_order_passes_the_chip_check(d, sq, sk, hq, hk):
+    """fwd_mma_kernel's order of work (64-key tiles, 16-wide fp32 chunks
+    of every product, the scale in the exponent's FFMA, p rounded to bf16
+    against the running max) stays inside chip_smoke.py's unchanged bf16
+    FLASH_RTOL and LSE_RTOL against flash_fwd_plain at D = 256 and odd
+    D = 45, causal with a ragged key tail (and, at Sq > Sk, rows that see
+    no key); an lse left in log2 units fails."""
+    cs = _chip_smoke()
+    rng = np.random.RandomState(12)
+    mk = lambda s, h: torch.from_numpy(rng.standard_normal(  # noqa: E731
+        (1, s, h, d)).astype(np.float32)).bfloat16()
+    q, k, v = mk(sq, hq), mk(sk, hk), mk(sk, hk)
+    scale = 1.0 / math.sqrt(d)
+    out_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, True, scale)
+    out, lse = _mma_fwd(q, k, v, scale, True)
+    cs.check_close("out", out, out_ref, cs.FLASH_RTOL["fwd"][torch.bfloat16],
+                   quiet=True)
+    cs.check_close("lse", lse, lse_ref, cs.LSE_RTOL, quiet=True)
+    _, lse_bad = _mma_fwd(q, k, v, scale, True, log2_lse=True)
+    with pytest.raises(AssertionError):
+        cs.check_close("lse", lse_bad, lse_ref, cs.LSE_RTOL, quiet=True)
 
 
 def _wgmma_fwd(q, k, v, scale, causal, block=128, ln2=True):

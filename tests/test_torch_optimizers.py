@@ -30,13 +30,22 @@ The reference's ``_wd_coeff`` looks for an attribute ``_coeff`` that
 its ``L2Decay`` does not have, so a reference optimizer given
 ``L2Decay(c)`` applies no decay; the port reads ``coeff``, and an
 ``L2Decay(c)`` run is held to the reference given the float ``c``.
+Likewise an ``L1Decay(c)`` run of SGD, Momentum and Adam (fused and
+per-parameter) is held to the reference run without decay and fed each
+gradient plus ``jax.grad`` of the reference's ``L1Decay(c)`` penalty at
+its current parameter, ``c * sign(p)``; the decoupled rules (AdamW, Lamb)
+refuse an ``L1Decay``.
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import paddle_tpu as paddle
+from paddle_tpu import regularizer as jregularizer
 from paddle_tpu.core import flags as jflags
+from paddle_tpu.core.tensor import Tensor as JTensor
 from paddle_tpu.nn import clip as jclip
 from paddle_tpu.optimizer import lr as jlr
 from paddle_tpu_torch import amp as tamp
@@ -290,6 +299,109 @@ def test_l2decay_reads_its_coeff_and_equals_the_float():
         assert torch.equal(runs[0][k], runs[1][k])
     assert regularizer.L1Decay(0.5)(torch.tensor([-2.0, 1.0])) == 1.5
     assert regularizer.L2Decay(0.5)(torch.tensor([-2.0, 1.0])) == 1.25
+
+
+L1_COEFF = 0.05
+L1_SETUPS = {"SGD": dict(learning_rate=0.1),
+             "Momentum": dict(learning_rate=0.05, momentum=0.9,
+                              use_nesterov=True),
+             "Adam": dict(learning_rate=1e-2, amsgrad=True)}
+
+
+def _l1_penalty_grad(p: np.ndarray) -> np.ndarray:
+    """``jax.grad`` of the reference's ``L1Decay(L1_COEFF)`` penalty at
+    ``p`` (no entry of the data is 0, where jax and ``sign`` differ)."""
+    pen = jregularizer.L1Decay(L1_COEFF)
+    return np.asarray(jax.grad(lambda x: pen(JTensor(x))._data)(
+        jnp.asarray(p)))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "loop"])
+@pytest.mark.parametrize("name", list(L1_SETUPS))
+def test_l1decay_adds_the_reference_penalty_gradient(name, fused):
+    """``weight_decay=L1Decay(c)`` adds ``c * sign(p)`` (not ``c * p``) to
+    every gradient, on the fused and the per-parameter path: held at
+    rtol 1e-6, parameters and state, to the reference optimizer without
+    decay fed the gradient plus the penalty's gradient at its own current
+    parameter."""
+    arrays, grads = _data(seed=2)
+    ref = {}
+    for k, a in arrays.items():
+        ref[k] = paddle.create_parameter(list(a.shape), "float32")
+        ref[k].set_value(a)
+    ropt = getattr(paddle.optimizer, name)(parameters=list(ref.values()),
+                                           **L1_SETUPS[name])
+    for g in grads:
+        for k, p in ref.items():
+            p.grad = paddle.to_tensor(g[k] + _l1_penalty_grad(p.numpy()))
+        ropt.step()
+    prev = get_flags("use_fused_optimizer")
+    set_flags({"use_fused_optimizer": fused})
+    try:
+        got = _port_params(arrays, torch.float32)
+        opt = getattr(topt, name)(
+            parameters=list(got.values()),
+            weight_decay=regularizer.L1Decay(L1_COEFF), **L1_SETUPS[name])
+        for g in grads:
+            for k, p in got.items():
+                p.grad = torch.from_numpy(g[k])
+            opt.step()
+    finally:
+        set_flags(prev)
+    _hold(name, "fp32", ref, ropt, got, opt)
+
+
+@pytest.mark.parametrize("setup", ["fp32", "bf16"])
+def test_l1decay_fused_step_equals_the_loop(setup):
+    """Adam with ``L1Decay`` (the sign taken on the fp32 master weight
+    under ``multi_precision``) gives the same bits with the flag
+    ``use_fused_optimizer`` on and off, and differs from ``L2Decay`` of
+    the same coefficient."""
+    arrays, grads = _data(seed=3)
+    dt = torch.float32 if setup == "fp32" else torch.bfloat16
+    runs = {}
+    for key, wd, fused in (("fused", regularizer.L1Decay(L1_COEFF), True),
+                           ("loop", regularizer.L1Decay(L1_COEFF), False),
+                           ("l2", regularizer.L2Decay(L1_COEFF), True)):
+        prev = get_flags("use_fused_optimizer")
+        set_flags({"use_fused_optimizer": fused})
+        try:
+            ps = _port_params(arrays, dt)
+            opt = topt.Adam(1e-2, parameters=list(ps.values()),
+                            weight_decay=wd, multi_precision=setup == "bf16")
+            for g in grads:
+                for k, p in ps.items():
+                    p.grad = torch.from_numpy(g[k]).to(dt)
+                opt.step()
+        finally:
+            set_flags(prev)
+        runs[key] = (ps, opt)
+    (fp, fo), (lp, lo), (l2p, _) = runs["fused"], runs["loop"], runs["l2"]
+    for k in SHAPES:
+        assert torch.equal(fp[k], lp[k]), k
+        for key, v in fo.state[fp[k]].items():
+            w = lo.state[lp[k]][key]
+            assert (v == w) if key == "step" else torch.equal(v, w), key
+        if setup == "bf16":
+            assert torch.equal(fo._master_weights[fp[k]],
+                               lo._master_weights[lp[k]])
+    assert not all(torch.equal(fp[k], l2p[k]) for k in SHAPES)
+
+
+@pytest.mark.parametrize("name,kw", [("AdamW", "weight_decay"),
+                                     ("Lamb", "lamb_weight_decay")])
+def test_decoupled_rules_refuse_l1decay(name, kw):
+    """AdamW and Lamb decay decoupled from the gradient, by a float: an
+    ``L1Decay`` raises and names the class; an ``L2Decay`` is taken by its
+    coefficient as before."""
+    arrays, _ = _data()
+    ps = list(_port_params(arrays, torch.float32).values())
+    with pytest.raises(ValueError, match=name):
+        getattr(topt, name)(parameters=ps,
+                            **{kw: regularizer.L1Decay(L1_COEFF)})
+    opt = getattr(topt, name)(parameters=ps,
+                              **{kw: regularizer.L2Decay(L1_COEFF)})
+    assert opt.param_groups[0]["weight_decay"] == L1_COEFF
 
 
 def test_step_lr_and_wd_mask_override_and_apply_gradients_skips_clip():
