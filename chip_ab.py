@@ -45,12 +45,25 @@ forward, then backward):
   O rescaled only when a max moved; out and lse within ``FLASH_RTOL``
   and ``LSE_RTOL`` of the plain version, each copy's ptxas registers and
   spills printed, timed in turns beside sdpa.
+- its bf16 dq and dkv of the FMA route (``dq_mma_kernel``,
+  ``dkv_mma_kernel``) at the same shapes: the parent's one-tile
+  dq_kernel / dkv_kernel in their place, and the register budget's
+  alternatives (dq with 4 warps at D = 256, also with 64-key tiles; dq
+  on 32-key tiles; dq at three blocks an SM at D = 64; dkv on 32-row q
+  tiles at D = 64, 128 and 256; dkv splitting D at D = 128 as at 256;
+  dkv at one block an SM at D = 64), also at BERT-large's attention with
+  its key mask and dropout 0.1; dq, dk and dv held by chip_smoke.py's
+  ``check_exact`` against an fp64 backward (their share of
+  ``FLASH_RTOL["bwd"]`` reported), each copy's ptxas registers and
+  spills printed, timed in turns beside sdpa's backward.
 
-    python3 chip_ab.py --kernels flash_attention
+    python3 chip_ab.py --kernels flash_attention [--flash-parts bf16_bwd]
 
-runs one source's copies alone. Needs one card; prints the card's name
-and power limit, each copy's time per turn, and writes them as JSON to
-``DIR/chip_ab.json`` (default ``build/chip_ab``). A development aid for
+runs one source's copies alone (``--flash-parts``: only the named flash
+A/Bs, of fp32, bf16_fwd and bf16_bwd, are built and run). Needs one
+card; prints the card's name and power limit, each copy's time per
+turn, and writes them as JSON to ``DIR/chip_ab.json`` (default
+``build/chip_ab``). A development aid for
 choosing among designs, not a check of the port: chip_smoke.py is that.
 """
 from __future__ import annotations
@@ -574,9 +587,10 @@ _FA_3XTF32_SMEM = (
 # strides at every key); blocks in the grid's own order rather than longest
 # q tile first; the products as 3xTF32, two key halves per row, each with
 # its own online softmax, merged at the end
-_FA_FWD_ONE_TILE = ("  if (pass == Pass::kFwd) {\n    if constexpr (kRing<T, DP>) {",
-                    "  if (pass == Pass::kFwd) {\n"
-                    "    if constexpr (kRing<T, DP> && false) {")
+_FA_FWD_ONE_TILE = ("    if (pass == Pass::kFwd) {\n"
+                    "      if constexpr (kRing<T, DP>) {",
+                    "    if (pass == Pass::kFwd) {\n"
+                    "      if constexpr (kRing<T, DP> && false) {")
 _FA_FWD_P_IN_K = (
     ("  float* Ps = Vs + 2 * KT;           // [BQ][PLD]\n", ""),
     ("    score_product<DP, DP, LK, 4>(Qs, Kt, s, tx, ty);\n",
@@ -815,6 +829,50 @@ BF16_FWD_VARIANTS = {
          "    for (int r = 0; r < 2 * MT; ++r) moved |= alpha[r] != 1.f;\n"
          "    if (__any_sync(0xffffffffu, moved))\n"),),
 }
+# the bf16 dq and dkv of the FMA route (dq_mma_kernel, dkv_mma_kernel):
+# the one-tile dq_kernel / dkv_kernel in their place (the parent of their
+# redesign); the register budget's alternatives: dq with 4 warps (64-row q
+# tiles) at DP = 256, there also with 64-key tiles; dq on 32-key tiles up
+# to DP = 128; dq at three blocks an SM at DP = 64 (at most 168
+# registers); dkv on 32-row q tiles at DP = 64, 128 and 256; dkv
+# splitting D between two warps at DP = 128 as at 256; dkv at one block
+# an SM at DP = 64
+FA_BF16_BWD_PARENT = ("bf16 dq and dkv: one-tile dq_kernel / dkv_kernel "
+                      "(the parent)")
+_DQ_BK = "BQ = 16 * WARPS / NS, BK = DP <= 128 ? 64 : 32;"
+_DQ_WARPS = "static constexpr int WARPS = DP == 256 ? 8 : 4;"
+_DKV_BQ = "static constexpr int BQ = DP == 128 && MASK ? 16 : 64;"
+BF16_BWD_VARIANTS = {
+    FA_BF16_BWD_PARENT: (("constexpr bool kMmaBwd = std::is_same<T, "
+                          "__nv_bfloat16>::value;",
+                          "constexpr bool kMmaBwd = false;"),),
+    "bf16 dq, 4 warps at DP = 256": (
+        (_DQ_WARPS, "static constexpr int WARPS = 4;"),),
+    "bf16 dq, 4 warps and 64-key tiles at DP = 256": (
+        (_DQ_WARPS, "static constexpr int WARPS = 4;"),
+        (_DQ_BK, "BQ = 16 * WARPS / NS, BK = DP <= 128 || !MASK ? 64 : 32;")),
+    "bf16 dq, 32-key tiles at DP <= 128": (
+        (_DQ_BK, "BQ = 16 * WARPS / NS, BK = 32;"),),
+    "bf16 dq at three blocks an SM at DP = 64": (
+        ("__launch_bounds__(DqTile<DP, MASK>::THREADS, 1)",
+         "__launch_bounds__(DqTile<DP, MASK>::THREADS, DP == 64 ? 3 : 1)"),),
+    "bf16 dkv, 32-row q tiles at DP = 64": (
+        (_DKV_BQ, "static constexpr int BQ = DP == 128 && MASK ? 16 : "
+                  "DP == 64 ? 32 : 64;"),),
+    "bf16 dkv, 32-row q tiles at DP = 128": (
+        (_DKV_BQ, "static constexpr int BQ = DP == 128 ? (MASK ? 16 : 32) "
+                  ": 64;"),),
+    "bf16 dkv, 32-row q tiles at DP = 256": (
+        (_DKV_BQ, "static constexpr int BQ = DP == 128 && MASK ? 16 : "
+                  "DP == 256 ? 32 : 64;"),),
+    "bf16 dkv, D split at DP = 128": (
+        ("static constexpr int NS = DP == 256 ? 2 : 1;",
+         "static constexpr int NS = DP >= 128 ? 2 : 1;"),
+        (_DKV_BQ, "static constexpr int BQ = 64;")),
+    "bf16 dkv at one block an SM at DP = 64": (
+        ("static constexpr int BLOCKS = DP == 64 && !MASK ? 3 : 1;",
+         "static constexpr int BLOCKS = 1;"),),
+}
 FLASH_VARIANTS = {
     "committed": (),
     FA_FWD_PARENT: (_FA_FWD_ONE_TILE,),
@@ -832,6 +890,14 @@ FLASH_VARIANTS = {
     FA_TENSOR_CORES: ((_FA_SECTION, _FA_3XTF32),
                       (_FA_3XTF32_SMEM[0], _FA_3XTF32_SMEM[1])),
     **BF16_FWD_VARIANTS,
+    **BF16_BWD_VARIANTS,
+}
+# the flash copies each part of the A/B runs (``--flash-parts``)
+FLASH_PARTS = {
+    "fp32": [n for n in FLASH_VARIANTS
+             if n not in BF16_FWD_VARIANTS and n not in BF16_BWD_VARIANTS],
+    "bf16_fwd": ["committed", *BF16_FWD_VARIANTS],
+    "bf16_bwd": ["committed", *BF16_BWD_VARIANTS],
 }
 # (B, S, H, D, causal, BERT's key mask) of the three fp32 oracles' attention
 FLASH_SHAPES = {"BERT oracle": (2, 512, 16, 64, False, True),
@@ -844,6 +910,13 @@ BF16_SHAPES = {"GPT-2": (8, 1024, 12, 64, True),
                "Llama-2 7B": (1, 2048, 32, 128, True),
                "Gemma-7B D256": (1, 4096, 16, 256, True),
                "D45": (8, 1024, 12, 45, True)}
+# (B, S, H, D, causal, dropout rate, BERT's key mask) of the bf16 dq and
+# dkv's: BF16_SHAPES, and BERT-large's attention with its key mask and
+# dropout 0.1 forced onto the FMA route (the Mask instantiations)
+BF16_BWD_SHAPES = {**{label: (*shape, 0.0, False)
+                      for label, shape in BF16_SHAPES.items()},
+                   "BERT key mask, dropout 0.1": (16, 512, 16, 64, False,
+                                                  0.1, True)}
 SOURCES = {"rms_norm": RMS_VARIANTS, "cross_entropy": CE_VARIANTS,
            "flash_attention": FLASH_VARIANTS}
 
@@ -876,13 +949,17 @@ RMS_SHAPES = [(1, 4096, torch.float32), (8, 4096, torch.float32),
 CE_SHAPES = [(8192, 50304), (8192, 30522)]
 
 
-def variant_sources(names=tuple(SOURCES)) -> dict:
-    """{(source, variant): text} for every variant of the named sources."""
+def variant_sources(names=tuple(SOURCES), only=None) -> dict:
+    """{(source, variant): text} for every variant of the named sources
+    (``only``: {source: the variant names to keep}, default all)."""
     out = {}
     for name in names:
         table = SOURCES[name]
         base = (CSRC / f"{name}.cu").read_text()
+        keep = (only or {}).get(name)
         for variant, edits in table.items():
+            if keep is not None and variant not in keep:
+                continue
             text = base
             for old, new in edits:
                 text = _edit(text, old, new)
@@ -894,13 +971,13 @@ def variant_sources(names=tuple(SOURCES)) -> dict:
 BUILD_LOGS = {}
 
 
-def _build_all(out_dir: Path, names) -> dict:
+def _build_all(out_dir: Path, names, only=None) -> dict:
     sys.path.insert(0, str(REPO))
     from paddle_tpu_torch.ops.kernels import _build
     work = REPO / "build" / "chip_ab"
     work.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (key, text) in enumerate(variant_sources(names).items()):
+    for i, (key, text) in enumerate(variant_sources(names, only).items()):
         src = work / f"{key[0]}_{i}.cu"
         src.write_text(text)
         lib = work / f"lib{key[0]}_{i}.so"
@@ -1074,7 +1151,7 @@ def ab_flash(libs, gen) -> dict:
     # the outputs a copy may change: those of the pass on the tensor cores
     free = {FA_FWD_TENSOR_CORES: ("out", "lse"),
             FA_TENSOR_CORES: ("dq", "dk", "dv")}
-    names = [n for n in FLASH_VARIANTS if n not in BF16_FWD_VARIANTS]
+    names = FLASH_PARTS["fp32"]
     load = _build.load
     res = {}
     try:
@@ -1151,7 +1228,7 @@ def ab_flash_bf16(libs, gen) -> dict:
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     cs = _chip_smoke()
-    names = ["committed", *BF16_FWD_VARIANTS]
+    names = FLASH_PARTS["bf16_fwd"]
     for name in names:
         rep = cs.ptxas_report(BUILD_LOGS[("flash_attention", name)])
         print(f"  ptxas {name}: " + ", ".join(
@@ -1204,15 +1281,129 @@ def ab_flash_bf16(libs, gen) -> dict:
     return res
 
 
+def ab_flash_bf16_bwd(libs, gen) -> dict:
+    """The bf16 dq and dkv of the FMA route in every BF16_BWD_VARIANTS copy
+    at BF16_BWD_SHAPES: ptxas's registers and spills of each copy's bf16 dq
+    and dkv kernels; dq, dk and dv held by chip_smoke.py's check_exact (no
+    further from the fp64 backward than BWD_EXACT_RATIO times the plain
+    version's own distance: the copies sum in other tile orders, so not
+    to the committed bits, and the entry-wise distance to the plain
+    version depends on the draw at these lengths, on both routes), their
+    share of FLASH_RTOL["bwd"] reported; then timed in turns beside
+    sdpa's backward (its forward plus backward less its forward)."""
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    cs = _chip_smoke()
+    names = FLASH_PARTS["bf16_bwd"]
+    tol = cs.FLASH_RTOL["bwd"][torch.bfloat16]
+    for name in names:
+        rep = cs.ptxas_report(BUILD_LOGS[("flash_attention", name)])
+        print(f"  ptxas {name}: " + ", ".join(
+            f"{r['kernel'][-60:]} {r.get('registers')} registers, spills "
+            f"{r.get('spill_stores')}/{r.get('spill_loads')} B"
+            for r in rep["kernels"]
+            if r["kernel"].startswith(("dq_mma_kernel<", "dkv_mma_kernel<"))
+            or "dq_kernelI13__nv_bfloat16" in r["kernel"]
+            or "dkv_kernelI13__nv_bfloat16" in r["kernel"]), flush=True)
+    load = _build.load
+    res = {}
+    try:
+        for label, (b, s, h, d, causal, rate, keymask) in \
+                BF16_BWD_SHAPES.items():
+            q, k, v, do = (torch.randn(b, s, h, d, device="cuda",
+                                       generator=gen).bfloat16()
+                           for _ in range(4))
+            scale = 1.0 / math.sqrt(d)
+            seed = torch.tensor([987654321], dtype=torch.int32,
+                                device="cuda")
+            bias = None
+            if keymask:
+                lens = torch.randint(128, s + 1, (b,), device="cuda",
+                                     generator=gen)
+                keys = torch.arange(s, device="cuda")[None, :]
+                bias = torch.where(keys < lens[:, None], 0.0,
+                                   -1e9)[:, None, None]
+            drop = (rate, seed, bias)
+            out, lse = fa.flash_fwd_plain(q, k, v, causal, scale, *drop)
+            delta = (do.float() * out.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            args = (q, k, v, do, lse, delta, causal, scale, *drop)
+            want = dict(zip(("dq", "dk", "dv"), (fa.flash_dq_plain(*args),
+                                                 *fa.flash_dkv_plain(*args))))
+            exact = dict(zip(("dq", "dk", "dv"), cs.exact_bwd(*args)))
+
+            def run(name, kind):
+                _build.load = lambda _, n=name: libs[("flash_attention", n)]
+                if kind == "dq":
+                    return {"dq": fa._dq_launch(*args, route="fma")}
+                return dict(zip(("dk", "dv"),
+                                fa._dkv_launch(*args, route="fma")))
+            shares, ratios = {}, {}
+            for name in names:
+                got = {**run(name, "dq"), **run(name, "dkv")}
+                torch.cuda.synchronize()
+                shares[name] = [cs._tolerance_share(o, got[o], want[o], tol)[1]
+                                for o in ("dq", "dk", "dv")]
+                ratios[name] = [cs.check_exact(
+                    f"bf16 {o} {name} at {label}", got[o], want[o], exact[o],
+                    cs.BWD_EXACT_RATIO, quiet=True)[1]
+                    for o in ("dq", "dk", "dv")]
+            del out, want, exact, got
+            torch.cuda.empty_cache()
+            entry = {"share_of_rtol": shares, "share_of_exact_limit": ratios}
+            for kind in ("dq", "dkv"):
+                entry[kind] = _in_turns(
+                    names, lambda n, kind=kind: run(n, kind), reps=10,
+                    iters=5)
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                          for x in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+
+            mask = None if bias is None else bias.to(torch.bfloat16)
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, dropout_p=rate,
+                    is_causal=causal)
+            entry["sdpa_bwd_ms"] = [
+                _time_graph_ms(lambda: torch.autograd.grad(
+                    sdpa(), (qt, kt, vt), dot), 10, 5)
+                - _time_graph_ms(sdpa, 10, 5) for _ in range(2)]
+            for kind in ("dq", "dkv"):
+                print(f"  flash_{kind} bf16 {label}: " + ", ".join(
+                    f"{n} {t[0]:.4f}/{t[1]:.4f}"
+                    for n, t in entry[kind].items()) + " ms", flush=True)
+            print(f"  sdpa backward bf16 {label}: "
+                  f"{entry['sdpa_bwd_ms'][0]:.4f}/"
+                  f"{entry['sdpa_bwd_ms'][1]:.4f} ms; share of FLASH_RTOL "
+                  "/ of check_exact's limit (dq, dk, dv): " + ", ".join(
+                      f"{n} " + "/".join(f"{x:.3f}" for x in sh) + " / "
+                      + "/".join(f"{x:.3f}" for x in ratios[n])
+                      for n, sh in shares.items()), flush=True)
+            res[label] = entry
+            del qt, kt, vt, dot
+            torch.cuda.empty_cache()
+    finally:
+        _build.load = load
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=str(REPO / "build" / "chip_ab"))
     ap.add_argument("--kernels", default=",".join(SOURCES),
                     help="comma-separated subset of " + ",".join(SOURCES))
+    ap.add_argument("--flash-parts", default=",".join(FLASH_PARTS),
+                    help="the flash A/Bs to build and run: comma-separated "
+                         "subset of " + ",".join(FLASH_PARTS))
     args = ap.parse_args(argv)
     names = tuple(args.kernels.split(","))
     if not set(names) <= set(SOURCES):
         ap.error(f"--kernels: unknown {sorted(set(names) - set(SOURCES))}")
+    parts = tuple(args.flash_parts.split(","))
+    if not set(parts) <= set(FLASH_PARTS):
+        ap.error(f"--flash-parts: unknown "
+                 f"{sorted(set(parts) - set(FLASH_PARTS))}")
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device", file=sys.stderr)
         return 2
@@ -1224,17 +1415,23 @@ def main(argv=None) -> int:
         text=True, timeout=60).stdout.strip().splitlines()[0]
     print(card, flush=True)
     t0 = time.perf_counter()
-    libs = _build_all(out_dir, names)
+    only = {"flash_attention": {n for p in parts for n in FLASH_PARTS[p]}}
+    libs = _build_all(out_dir, names, only)
     print(f"built {len(libs)} copies in {time.perf_counter() - t0:.1f} s",
           flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    runs = {"rms_norm": ab_rms_norm, "cross_entropy": ab_cross_entropy,
-            "flash_attention": ab_flash}
+    runs = {"rms_norm": ab_rms_norm, "cross_entropy": ab_cross_entropy}
+    flash = {"fp32": ("flash_attention", ab_flash),
+             "bf16_fwd": ("flash_attention_bf16", ab_flash_bf16),
+             "bf16_bwd": ("flash_attention_bf16_bwd", ab_flash_bf16_bwd)}
     report = {"card": card}
     for name in names:
-        report[name] = runs[name](libs, gen)
+        if name in runs:
+            report[name] = runs[name](libs, gen)
     if "flash_attention" in names:
-        report["flash_attention_bf16"] = ab_flash_bf16(libs, gen)
+        for part in parts:
+            key, fn = flash[part]
+            report[key] = fn(libs, gen)
     (out_dir / "chip_ab.json").write_text(json.dumps(report, indent=1))
     return 0
 

@@ -14,9 +14,10 @@ Phases, each fatal on failure:
    registers, spills and warnings for each tensor-core flash kernel, and
    its SASS's HGMMAs, wgmma waits and global loads; for the FMA route's
    fp32 forward, dq and dkv (``fwd_fp32_kernel``, ``dq_fp32_kernel``,
-   ``dkv_fp32_kernel``) and its bf16 forward (``fwd_mma_kernel``,
-   mma.sync) registers, spills and the SASS's HMMA, FFMA and
-   shared-load instructions.
+   ``dkv_fp32_kernel``) and its bf16 forward, dq and dkv
+   (``fwd_mma_kernel``, ``dq_mma_kernel``, ``dkv_mma_kernel``, mma.sync)
+   registers, spills and the SASS's HMMA, FFMA and shared-load
+   instructions.
 3. kernels: each kernel against its plain PyTorch version on the card
    at the main paths' shapes (RMSNorm forward, and its backward from the
    kernel's statistic, at decode's rows 1-8 and 13, which take its
@@ -32,7 +33,8 @@ Phases, each fatal on failure:
    dropout), bf16 operands at a 2-byte storage offset, and
    dropout (also at D = 128), whose keep-mask must match exactly in fp32
    and bf16 (on both routes); with an additive bias: BERT-large's key mask, a full bias
-   whose dbias the dq kernels emit, a broadcast one with dropout, rows
+   whose dbias the dq kernels emit (also at D = 256 with dropout and GQA,
+   the bf16 dq and dkv of the FMA route), a broadcast one with dropout, rows
    that an infinite bias hides; with packed segments, per-segment causal,
    also with unequal q and k lengths; the softmax cross-entropy forward
    and backward at GPT-2's and BERT's training logits, BERT's NSP head
@@ -47,7 +49,8 @@ Phases, each fatal on failure:
    kernels, sdpa's backward alone; at BERT's shape sdpa takes the same
    float attn_mask and dropout rate). Every check holds entry by entry
    (``check_close``: rtol of |plain| + rms(plain)), but for the bf16
-   backward at Llama-2 7B's and BERT-large's shapes (``check_exact``: no
+   backward at Llama-2 7B's, BERT-large's and Gemma-7B's shapes
+   (``check_exact``: no
    further from the fp64 result, bias and dropout included, than 1.25x
    the plain version's own distance); dbias is held
    tighter than a bf16-rounded dbias could pass. Each flash case must
@@ -670,12 +673,15 @@ FLASH_CASES = [
     # the FMA route's bf16 forward (fwd_mma_kernel) at its edges: D = 256
     # with GQA; an odd head dim, whose rows start only 2 bytes apart,
     # ragged, with dropout; D = 64 on operands 2 bytes past a 16-byte
-    # boundary; and Gemma-7B's attention (16 heads of 256), timed
+    # boundary; and Gemma-7B's attention (16 heads of 256), timed, its
+    # backward held by check_exact (the tensor-core dq and dkv over 4096
+    # keys; PERF.md)
     ("d256-bf16", 1, 512, 512, 8, 2, 256, torch.bfloat16, True, 0.0),
     ("d45-odd-bf16", 2, 200, 333, 4, 2, 45, torch.bfloat16, True, 0.1),
     ("misaligned-d64-bf16", 2, 200, 333, 4, 2, 64, torch.bfloat16, True,
      0.0, {"offset": 1}),
-    ("gemma7b-d256", 1, 4096, 4096, 16, 16, 256, torch.bfloat16, True, 0.0),
+    ("gemma7b-d256", 1, 4096, 4096, 16, 16, 256, torch.bfloat16, True, 0.0,
+     {"bwd": "exact"}),
     # additive bias and segments. BERT-large's attention (its padding mask
     # as a [B, 1, 1, S] key bias at 0 / -1e9; then with the model's
     # dropout 0.1, the kernels its train cell launches; and the fp32
@@ -725,6 +731,12 @@ FLASH_CASES = [
     # 16-byte boundary, so the FMA route's fp32 forward, dq and dkv copy
     # their tiles by 4-byte cp.async (ragged keys, causal, GQA)
     ("d50-ragged-fp32", 2, 200, 333, 4, 2, 50, torch.float32, True, 0.0),
+    # the Mask instantiations of the FMA route's bf16 dq and dkv at D = 256
+    # (dq's two warps a row block, each over half of D): a full bias with
+    # dbias, ragged, GQA, dropout; last, so that the earlier cases keep
+    # their draws
+    ("d256-full-bias-dbias-bf16", 1, 200, 333, 4, 2, 256, torch.bfloat16,
+     True, 0.1, {"bias": "full"}),
 ]
 INF_ROWS = (0, 7, 100)                  # the rows "inf-rows" hides
 # entry-wise (check_close), 2-5x the most the kernels needed on the card
@@ -739,10 +751,12 @@ LSE_RTOL = 3e-7                         # lse is fp32 at every dtype
 # another order: held far tighter than the bf16 dq, between the readings
 # and the same dbias rounded to bf16, which must fail it (PERF.md)
 DBIAS_RTOL = {torch.float32: 5e-6, torch.bfloat16: 1e-4}
-# check_exact's limit for the bf16 backward at Llama-2 7B's shape and at
+# check_exact's limit for the bf16 backward at Llama-2 7B's shape, at
 # BERT-large's (its key mask, with and without dropout, in the fp64
-# backward too), where the entry-wise distance to the plain version
-# passed on some draws only: the kernel no further from fp64 than this
+# backward too) and at Gemma-7B's (D = 256, 4096 keys: the FMA route's
+# tensor-core dq and dkv), where the entry-wise distance to the plain
+# version passed on some draws only, at entries where the plain version
+# is the further from fp64: the kernel no further from fp64 than this
 # many times the plain version's own distance. Both routes read
 # 1.000-1.002 at Llama's shape over seeds 0-3 (PERF.md); 0.25 of room
 # above 1 leaves a missing key tile failing it
@@ -884,13 +898,12 @@ def _flash_case(fa, gen, case):
     dk, dv = fa.flash_dkv(q, k, v, do, lsep, delta, *args)
     moved = {n: c - before[n] for n, c in _counts().items()
              if c != before[n]}
-    sfx = _sfx(route) + ("_keybias" if keys else
-                         "_bias" if bias is not None else "")
+    # the FMA route's bf16 forward, dq and dkv are the mma.sync kernels
+    # (fwd_mma_kernel, dq_mma_kernel, dkv_mma_kernel)
+    sfx = (_sfx(route) + ("_mma" if route == "fma" and dtype == torch.bfloat16
+                          else "")
+           + ("_keybias" if keys else "_bias" if bias is not None else ""))
     expect = {f"flash_{kind}{sfx}": 1 for kind in ("fwd", "dq", "dkv")}
-    if route == "fma" and dtype == torch.bfloat16:
-        # the FMA route's bf16 forward is fwd_mma_kernel
-        del expect[f"flash_fwd{sfx}"]
-        expect["flash_fwd_mma" + sfx] = 1
     if moved != expect:
         raise AssertionError(f"{name}: launches {moved}, expected {expect}")
     hold(_sfx(route), out, lse, dq, dk, dv, db)
@@ -1054,14 +1067,15 @@ FMA_KINDS = ("fwd", "dq", "dkv")
 # without the mask), and the "plane" bias class on the same mask
 # materialised as [B, 1, Sq, Sk]; the FMA kernels at the three fp32
 # oracles' shapes (BERT's with its key bias: the bias instantiations).
-# The FMA route's bf16 forward (fwd_mma_kernel) at GPT-2's, Llama-2 7B's
-# and BERT's shapes ("fwd" on a bf16 case) and at Gemma-7B's attention.
+# The FMA route's bf16 forward, dq and dkv (fwd_mma_kernel, dq_mma_kernel,
+# dkv_mma_kernel) at GPT-2's, Llama-2 7B's and BERT's shapes ("fwd", "dq"
+# and "dkv" on a bf16 case) and at Gemma-7B's attention.
 # (key, case, kinds[, bias_as])
 FLASH_TIMED = (("gpt2", "gpt2-train", FLASH_KINDS),
                ("llama7b", "llama7b", FLASH_KINDS),
                ("llama07b_train", "llama-0.7b-train", WGMMA_KINDS),
-               ("bert", "bert-keymask-dropout", WGMMA_KINDS + ("fwd",)),
-               ("gemma7b_d256", "gemma7b-d256", ("fwd",)),
+               ("bert", "bert-keymask-dropout", WGMMA_KINDS + FMA_KINDS),
+               ("gemma7b_d256", "gemma7b-d256", FMA_KINDS),
                ("bert_no_dropout", "bert-large-keymask", WGMMA_KINDS),
                ("bert_nobias", "bert-keymask-dropout", WGMMA_KINDS, "none"),
                ("bert_nobias_no_dropout", "bert-large-keymask", WGMMA_KINDS,
@@ -1546,9 +1560,9 @@ def _wrappers():
         out.update({f"flash_{kind}": w, f"flash_{kind}_wgmma": w.wgmma,
                     f"flash_{kind}_bias": w.bias,
                     f"flash_{kind}_wgmma_bias": w.wgmma_bias,
-                    f"flash_{kind}_wgmma_keybias": w.wgmma_keybias})
-    out.update({"flash_fwd_mma": fa.flash_fwd.mma,
-                "flash_fwd_mma_bias": fa.flash_fwd.mma_bias})
+                    f"flash_{kind}_wgmma_keybias": w.wgmma_keybias,
+                    f"flash_{kind}_mma": w.mma,
+                    f"flash_{kind}_mma_bias": w.mma_bias})
     return out
 
 
@@ -3010,7 +3024,8 @@ def main(argv=None) -> int:
     for row in ptxas_fp32["kernels"]:
         if "_fp32_kernel<" in row["kernel"] or "mma_kernel<" in row["kernel"]:
             ops = ptxas_fp32["ops"].get(row["kernel"], {})
-            what = ("bf16 forward" if "mma_kernel<" in row["kernel"]
+            what = ("bf16 " + row["kernel"].split("_")[0]
+                    if "mma_kernel<" in row["kernel"]
                     else "fp32 forward / dq / dkv")
             log(f"  ptxas {row['kernel']} ({what}, FMA "
                 f"route): "
@@ -3054,10 +3069,11 @@ def main(argv=None) -> int:
                 max_abs_err=rows[f"flash_{kind}_keybias"]["max_abs_err"])
         for kind in FMA_KINDS:
             rows[f"flash_{kind}_bias"] = timed["bert_oracle_fp32"].pop(kind)
-        # the FMA route's bf16 forward at GPT-2's shape, and with BERT's
-        # key mask and dropout (its Mask instantiation)
-        rows["flash_fwd_mma"] = timed["gpt2"].pop("fwd")
-        rows["flash_fwd_mma_bias"] = timed["bert"].pop("fwd")
+        # the FMA route's bf16 forward, dq and dkv at GPT-2's shape, and
+        # with BERT's key mask and dropout (their Mask instantiations)
+        for kind in FMA_KINDS:
+            rows[f"flash_{kind}_mma"] = timed["gpt2"].pop(kind)
+            rows[f"flash_{kind}_mma_bias"] = timed["bert"].pop(kind)
         report["flash_timings"] = timed
         torch.cuda.empty_cache()
         ce_rows, report["ce_bert"], report["ce_errors"], \
@@ -3175,10 +3191,12 @@ def main(argv=None) -> int:
         sources[f"flash_{kind}_bias"] = sources[f"flash_{kind}"]
     for kind in WGMMA_KINDS:
         sources[f"flash_{kind}_keybias"] = sources[f"flash_{kind}"]
-    # the FMA route's bf16 forward (fwd_mma_kernel), without and with the
-    # Mask; no main path launches it
-    sources["flash_fwd_mma"] = sources["flash_fwd_mma_bias"] = \
-        sources["flash_fwd"]
+    # the FMA route's bf16 forward, dq and dkv (fwd_mma_kernel,
+    # dq_mma_kernel, dkv_mma_kernel), without and with the Mask; no main
+    # path launches them
+    for kind in FMA_KINDS:
+        sources[f"flash_{kind}_mma"] = sources[f"flash_{kind}_mma_bias"] = \
+            sources[f"flash_{kind}"]
     report["launches_by_path"] = by_path
     kernels = []
     for name, (src, replaces) in sources.items():

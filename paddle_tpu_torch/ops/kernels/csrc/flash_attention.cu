@@ -37,7 +37,7 @@
 // on about the same bytes, so they are bound by operations.
 //
 // Design of the one-tile kernels (simple and right, not yet fast; fp32
-// above D = 128, bf16 dq and dkv): 256 threads as a 16 x 16 grid;
+// above D = 128): 256 threads as a 16 x 16 grid;
 // each thread owns a (BQ/16) x (BK/16) patch of the score tile and a
 // (rows/16) x (D/16) patch of the output or gradient tile. Tiles of Q, K,
 // V, dO and of P / dS live in shared memory as fp32 (bf16 converted on
@@ -49,10 +49,10 @@
 // aligned operands take the tensor-core forward, dq and dkv of
 // flash_attention_sm90.cu instead (`flash_route`); this file serves fp32,
 // wider heads and strides TMA cannot take. Here:
-// - the bf16 forward at every head dim (1 .. 256) and alignment is
-//   fwd_mma_kernel: mma.sync m16n8k16 on the tensor cores behind a
-//   cp.async ring (its section below);
-// - bf16 dq and dkv are dq_kernel and dkv_kernel;
+// - the bf16 forward, dq and dkv at every head dim (1 .. 256) and
+//   alignment are fwd_mma_kernel, dq_mma_kernel and dkv_mma_kernel:
+//   mma.sync m16n8k16 on the tensor cores behind a cp.async ring (their
+//   sections below; dkv splits D between two warps at DP = 256);
 // - fp32 up to D = 128 takes fwd_fp32_kernel, dq_fp32_kernel and
 //   dkv_fp32_kernel: the one-tile kernels' sums in the same order (so the
 //   same bits), with operands blocked in registers and fed by a cp.async
@@ -1629,6 +1629,540 @@ fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 dq and dkv on the tensor cores: mma.sync behind a cp.async ring
+// ---------------------------------------------------------------------------
+//
+// Every bf16 dq and dkv of the FMA route, as fwd_mma_kernel is its
+// forward: the forward's shape with roles swapped, and its helpers
+// (mma_copy_width, load_bf16_tile, ldsm_x4 / ldsm_x4_trans, mma_bf16, the
+// accumulator-to-A-fragment repacking, Mask and dropout at fragment
+// coordinates). p = 2^(scale log2(e) s - log2(e) lse) in the exp2 domain
+// (the bias added in natural units first; an lse of -inf read as 0, a
+// row past Sq p = 0); ds = p (dP dropped - delta) in fp32, rounded to
+// bf16 as the A fragment of its product, as is the dropped p of dV.
+// - dq: grid (nq, B*Hq), q tiles longest first. Each warp owns one 16-row
+//   block of q; Q and dO stay in shared memory, a ring of two K/V stages
+//   holds keys. S = Q K^T and dP = dO V^T take K and V rows by ldmatrix,
+//   dQ += ds K takes K by ldmatrix.trans. dQ is scaled at the end; with
+//   the Mask's dbias, ds is written in fp32 at fragment coordinates.
+// - dkv: grid (nk, B*Hk), key tiles that see the most q tiles first. K
+//   and V stay resident; a ring of two Q/dO stages, each with its lse and
+//   delta rows, runs from the first q tile that sees the key tile through
+//   every q head of the kv head's group (dK and dV sum the group in one
+//   block, no atomics). Each warp owns one 16-key block: S^T = K Q^T and
+//   dP^T = V dO^T read lse and delta for its columns (queries) from the
+//   stage; P^T and ds^T repack into A fragments of dV += P^T dO and
+//   dK += ds^T Q, dO and Q by ldmatrix.trans.
+// - The register budget. dq's dQ is DP / 2 fp32 a lane (128 at DP = 256)
+//   beside S and dP at BK / 2 each: BK = 64 up to DP = 128, 32 at 256.
+//   Under the Mask at DP = 256 (its bias rows and masks would spill) two
+//   warps share each 16-row block, both computing its scores, each
+//   accumulating dQ over half of D (NS = 2). dkv's dK
+//   and dV are DP fp32 a lane for a 16-key block, 256 at DP = 256, more
+//   than a lane holds: there the warps split D (NS = 2,
+//   FlashAttention-2's layout for wide heads): each (key block, half)
+//   warp computes the scores of its keys for half of the q tile's
+//   queries, stages P^T and ds^T as bf16 in shared memory, and after a
+//   barrier accumulates dK and dV for its keys over its half of D. Q
+//   tiles are 64 rows (16 at DP = 128 under the Mask, whose bias reads
+//   would spill). At DP = 64 without the Mask dkv fits 168 registers, so
+//   three blocks share an SM. `chip_ab.py` times the alternatives.
+// - Tiles bf16, rows padded by 16 bytes, D zero-padded to DP; copies as
+//   the forward's. A warp skips the products of a tile that the causal
+//   diagonal hides from all of its rows (dq) or keys (dkv).
+
+template <int DP, bool MASK>
+struct DqTile {
+  static constexpr int NS = DP == 256 && MASK ? 2 : 1;  // warps a 16-row block
+  static constexpr int WARPS = DP == 256 ? 8 : 4;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int BQ = 16 * WARPS / NS, BK = DP <= 128 ? 64 : 32;
+  static constexpr int LD = DP + 8;
+  static constexpr int Q_ELEMS = BQ * LD, KV_ELEMS = BK * LD;
+  static constexpr size_t SMEM = sizeof(__nv_bfloat16) * (2 * Q_ELEMS + 4 * KV_ELEMS);
+};
+
+template <int DP, bool MASK>
+struct DkvTile {
+  static constexpr int NS = DP == 256 ? 2 : 1;      // parts of D a key block
+  static constexpr int BK = 64, WARPS = BK / 16 * NS, THREADS = 32 * WARPS;
+  static constexpr int BQ = DP == 128 && MASK ? 16 : 64;
+  static constexpr int BLOCKS = DP == 64 && !MASK ? 3 : 1;  // an SM: 168 registers
+  static constexpr int LD = DP + 8, PLD = BQ + 8;   // bf16 a shared row
+  static constexpr int KV_ELEMS = BK * LD, Q_ELEMS = BQ * LD;
+  static constexpr int P_ELEMS = NS > 1 ? BK * PLD : 0;
+  static constexpr size_t SMEM =
+      sizeof(__nv_bfloat16) * (2 * KV_ELEMS + 4 * Q_ELEMS + 2 * P_ELEMS) +
+      sizeof(float) * 4 * BQ;
+};
+
+// the widest copy every row of q, k, v and dO starts on
+__device__ __forceinline__ int bwd_copy_width(const void* q, const void* k,
+                                              const void* v, const void* dout,
+                                              int D) {
+  return min(mma_copy_width(q, k, v, D), mma_copy_width(dout, dout, dout, D));
+}
+
+// dq: grid (nq, B*Hq), q tiles of DqTile<DP, MASK>::BQ rows
+template <int DP, bool MASK>
+__global__ void __launch_bounds__(DqTile<DP, MASK>::THREADS, 1)
+dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              __nv_bfloat16* __restrict__ dq, Dims dm, float scale, int causal,
+              Dropout dr, Mask mk) {
+  using TL = DqTile<DP, MASK>;
+  constexpr int BQ = TL::BQ, BK = TL::BK, LD = TL::LD, NT = TL::THREADS;
+  constexpr int NB = BK / 8;                        // key blocks of 8 in a tile
+  constexpr int DW = DP / TL::NS;                   // a warp's columns of dQ
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_mma);  // [BQ][LD]
+  __nv_bfloat16* dOs = Qs + TL::Q_ELEMS;            // [BQ][LD]
+  __nv_bfloat16* Ks = dOs + TL::Q_ELEMS;            // [2][BK][LD]: the ring
+  __nv_bfloat16* Vs = Ks + 2 * TL::KV_ELEMS;        // [2][BK][LD]
+
+  // block n of the grid (x fastest) takes head n % (B*Hq), q tile
+  // nq - 1 - n / (B*Hq), as fwd_mma_kernel
+  const int n = blockIdx.y * gridDim.x + blockIdx.x;
+  const int bh = n % static_cast<int>(gridDim.y);
+  const int q0 = (gridDim.x - 1 - n / static_cast<int>(gridDim.y)) * BQ;
+  const int b = bh / dm.Hq, h = bh % dm.Hq;
+  const int hk = h / (dm.Hq / dm.Hk);
+  const int offset = dm.Sk - dm.Sq;
+  const size_t qstride = static_cast<size_t>(dm.Hq) * dm.D;
+  const size_t kstride = static_cast<size_t>(dm.Hk) * dm.D;
+  const size_t qoff = (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
+  const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const int width = bwd_copy_width(q, k, v, dout, dm.D);
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int rb = w / TL::NS, d_lo = w % TL::NS * DW;  // row block, first column
+  const int row_base = q0 + 16 * rb;                // this warp's first row
+  const uint32_t seed_bh =
+      dr.on ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+  const float scale_log2 = scale * kLog2e;
+
+  int nk = (dm.Sk + BK - 1) / BK;
+  if (causal) nk = causal_k_tiles<BQ, BK>(q0, offset, nk);
+  load_bf16_tile<BQ, DP, LD, NT>(Qs, q + qoff, qstride, q0, dm.Sq, dm.D, width);
+  load_bf16_tile<BQ, DP, LD, NT>(dOs, dout + qoff, qstride, q0, dm.Sq, dm.D, width);
+  if (nk > 0) {
+    load_bf16_tile<BK, DP, LD, NT>(Ks, kb, kstride, 0, dm.Sk, dm.D, width);
+    load_bf16_tile<BK, DP, LD, NT>(Vs, vb, kstride, 0, dm.Sk, dm.D, width);
+  }
+  cp_async_commit();
+
+  // this lane's rows row_base + l / 4 + 8 r (r = 0, 1): -log2(e) lse (a
+  // row that sees no key reads lse 0; a row past Sq -inf: p = 0), delta,
+  // and the bias row (NULL past Sq)
+  float neg_lse[2], dl[2];
+  [[maybe_unused]] const float* brow[2] = {};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_base + (l >> 2) + 8 * r;
+    neg_lse[r] = -INFINITY;
+    dl[r] = 0.f;
+    if (row < dm.Sq) {
+      const size_t idx = static_cast<size_t>(bh) * dm.Sq + row;
+      const float ls = lse[idx];
+      neg_lse[r] = -(ls == -INFINITY ? 0.f : ls) * kLog2e;
+      dl[r] = delta[idx];
+      if (MASK && mk.bias) brow[r] = mk.bias + b * mk.sb + h * mk.sh + row * mk.sq;
+    }
+  }
+
+  float acc[DW / 2];                                // DW / 8 column blocks x 4
+#pragma unroll
+  for (int i = 0; i < DW / 2; ++i) acc[i] = 0.f;
+  // ldmatrix row addresses: Q and dO (A, 16 x 16), K and V rows (B of S
+  // and dP, two 8-key blocks), K (B of dQ, .trans, two 8-column blocks)
+  const __nv_bfloat16* qa = Qs + (16 * rb + (l & 15)) * LD + (l >> 4) * 8;
+  const __nv_bfloat16* oa = dOs + (16 * rb + (l & 15)) * LD + (l >> 4) * 8;
+  const int k_lane = ((l & 7) + ((l >> 4) << 3)) * LD + ((l >> 3) & 1) * 8;
+  const int t_lane = ((l & 7) + ((l >> 3) & 1) * 8) * LD + (l >> 4) * 8;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait<0>();
+    __syncthreads();  // this tile has landed; the other stage is consumed
+    if (kt + 1 < nk) {
+      const int nxt = (kt + 1) & 1;
+      load_bf16_tile<BK, DP, LD, NT>(Ks + nxt * TL::KV_ELEMS, kb, kstride, k0 + BK,
+                                     dm.Sk, dm.D, width);
+      load_bf16_tile<BK, DP, LD, NT>(Vs + nxt * TL::KV_ELEMS, vb, kstride, k0 + BK,
+                                     dm.Sk, dm.D, width);
+      cp_async_commit();
+    }
+    // a tile past this warp's last causal diagonal adds nothing
+    if (causal && k0 > row_base + 15 + offset) continue;
+    const __nv_bfloat16* Kt = Ks + (kt & 1) * TL::KV_ELEMS;
+    const __nv_bfloat16* Vt = Vs + (kt & 1) * TL::KV_ELEMS;
+
+    // S = Q K^T and dP = dO V^T: NB key blocks x 4 each
+    float s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      ldsm_x4(aq, qa + 16 * kk);
+      ldsm_x4(ao, oa + 16 * kk);
+#pragma unroll
+      for (int nb = 0; nb < BK / 16; ++nb) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, Kt + 16 * nb * LD + k_lane + 16 * kk);
+        ldsm_x4(bv, Vt + 16 * nb * LD + k_lane + 16 * kk);
+        mma_bf16(s + 8 * nb, aq, bk[0], bk[1]);
+        mma_bf16(s + 8 * nb + 4, aq, bk[2], bk[3]);
+        mma_bf16(dp + 8 * nb, ao, bv[0], bv[1]);
+        mma_bf16(dp + 8 * nb + 4, ao, bv[2], bv[3]);
+      }
+    }
+
+    // p, ds = p (dP dropped - delta), and ds rounded to bf16 as the A
+    // fragments of dQ += ds K; masks where the diagonal or the key edge
+    // cuts, and everywhere under the Mask
+    const bool cut = MASK || k0 + BK > dm.Sk ||
+                     (causal && k0 + BK - 1 > row_base + offset);
+    uint32_t dsa[BK / 16][4];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      float ds[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = k0 + 8 * i + 2 * (l & 3) + (j & 1);
+        const int rr = j >> 1, r = row_base + (l >> 2) + 8 * rr;
+        float x = fmaf(s[4 * i + j], scale_log2, neg_lse[rr]);
+        if constexpr (MASK) {
+          if (brow[rr] != nullptr)
+            x = fmaf(__fadd_rn(__fmul_rn(s[4 * i + j], scale),
+                               c < dm.Sk ? brow[rr][c * mk.sk] : 0.f),
+                     kLog2e, neg_lse[rr]);
+        }
+        float p = ex2_ftz(x);
+        if (cut) {
+          if constexpr (MASK) {
+            if (!visible(mk, dm, b, r, c, causal, offset)) p = 0.f;
+          } else if (c >= dm.Sk || (causal && c > r + offset)) {
+            p = 0.f;
+          }
+        }
+        float dpv = dp[4 * i + j];
+        if (dr.on)
+          dpv = keep(seed_bh, r, c, dm.Sk, dr.thresh) ? dpv * dr.keep_scale : 0.f;
+        ds[j] = p * (dpv - dl[rr]);
+        if constexpr (MASK)
+          if (mk.dbias && d_lo == 0 && r < dm.Sq && c < dm.Sk)
+            mk.dbias[(static_cast<size_t>(bh) * dm.Sq + r) * dm.Sk + c] = ds[j];
+      }
+      dsa[i >> 1][2 * (i & 1)] = pack_bf16(ds[0], ds[1]);
+      dsa[i >> 1][2 * (i & 1) + 1] = pack_bf16(ds[2], ds[3]);
+    }
+
+    // dQ += ds K, over this warp's DW columns
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc)
+#pragma unroll
+      for (int nd = 0; nd < DW / 16; ++nd) {
+        uint32_t bk[4];
+        ldsm_x4_trans(bk, Kt + 16 * kc * LD + t_lane + d_lo + 16 * nd);
+        mma_bf16(acc + 8 * nd, dsa[kc], bk[0], bk[1]);
+        mma_bf16(acc + 8 * nd + 4, dsa[kc], bk[2], bk[3]);
+      }
+  }
+  cp_async_wait<0>();
+
+  // dq = scale dQ; column pairs as one 4-byte store where dq's rows allow
+  __nv_bfloat16* db = dq + qoff;
+  const bool pairs = ((reinterpret_cast<uintptr_t>(dq) | (2u * dm.D)) & 3) == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_base + (l >> 2) + 8 * r;
+    if (row >= dm.Sq) continue;
+    __nv_bfloat16* drow = db + static_cast<size_t>(row) * qstride;
+#pragma unroll
+    for (int i = 0; i < DW / 8; ++i) {
+      const int c = d_lo + 8 * i + 2 * (l & 3);
+      const float x0 = acc[4 * i + 2 * r] * scale, x1 = acc[4 * i + 2 * r + 1] * scale;
+      if (pairs) {
+        if (c < dm.D) *reinterpret_cast<uint32_t*>(drow + c) = pack_bf16(x0, x1);
+      } else {
+        if (c < dm.D) drow[c] = __float2bfloat16(x0);
+        if (c + 1 < dm.D) drow[c + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+// dkv: grid (nk, B*Hk), key tiles of DkvTile<DP, MASK>::BK keys
+template <int DP, bool MASK>
+__global__ void __launch_bounds__(DkvTile<DP, MASK>::THREADS, DkvTile<DP, MASK>::BLOCKS)
+dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+               const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v,
+               const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               Dims dm, float scale, int causal, Dropout dr, Mask mk) {
+  using TL = DkvTile<DP, MASK>;
+  constexpr int BQ = TL::BQ, BK = TL::BK, LD = TL::LD, PLD = TL::PLD, NT = TL::THREADS;
+  constexpr int NS = TL::NS, QW = BQ / NS, DW = DP / NS;  // a warp's queries, columns
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_mma);  // [BK][LD]
+  __nv_bfloat16* Vs = Ks + TL::KV_ELEMS;            // [BK][LD]
+  __nv_bfloat16* Qs = Vs + TL::KV_ELEMS;            // [2][BQ][LD]: the ring
+  __nv_bfloat16* dOs = Qs + 2 * TL::Q_ELEMS;        // [2][BQ][LD]
+  [[maybe_unused]] __nv_bfloat16* Pst = dOs + 2 * TL::Q_ELEMS;  // [BK][PLD] (NS > 1)
+  [[maybe_unused]] __nv_bfloat16* dSst = Pst + TL::P_ELEMS;     // [BK][PLD]
+  float* lse_s = reinterpret_cast<float*>(dSst + TL::P_ELEMS);  // [2][BQ], as stored
+  float* dl_s = lse_s + 2 * BQ;                     // [2][BQ]
+
+  // block n of the grid (x fastest) takes kv head n % (B*Hk), key tile
+  // n / (B*Hk): under causal the low key tiles, which see the most q
+  // tiles, first
+  const int n = blockIdx.y * gridDim.x + blockIdx.x;
+  const int bhk = n % static_cast<int>(gridDim.y);
+  const int k0 = n / static_cast<int>(gridDim.y) * BK;
+  const int b = bhk / dm.Hk, hk = bhk % dm.Hk;
+  const int rep = dm.Hq / dm.Hk;
+  const int offset = dm.Sk - dm.Sq;
+  const int nq = (dm.Sq + BQ - 1) / BQ;
+  const size_t qstride = static_cast<size_t>(dm.Hq) * dm.D;
+  const size_t kstride = static_cast<size_t>(dm.Hk) * dm.D;
+  const size_t koff = (static_cast<size_t>(b) * dm.Sk * dm.Hk + hk) * dm.D;
+  const int width = bwd_copy_width(q, k, v, dout, dm.D);
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int kb = w % (BK / 16), part = w / (BK / 16);
+  const int key_base = k0 + 16 * kb;                // this warp's first key
+  const int q_lo = part * QW, d_lo = part * DW;     // its queries and columns
+  const float scale_log2 = scale * kLog2e;
+
+  // the q tiles qs .. nq - 1 of each of the group's rep heads see this key
+  // tile (causal: tile qi runs iff k0 <= q0 + BQ - 1 + offset): heads
+  // outer, q tiles inner
+  int qs = 0;
+  if (causal)
+    while (qs < nq && k0 > qs * BQ + BQ - 1 + offset) ++qs;
+  const int per = nq - qs, total = rep * per;
+  // copy work item `it` (the group's q head it / per, q tile qs + it % per)
+  // into ring stage `st`: Q, dO, and lse and delta as stored (0 past Sq)
+  auto issue = [&](int it, int st) {
+    const int h = hk * rep + it / per, q0 = (qs + it % per) * BQ;
+    const size_t qoff = (static_cast<size_t>(b) * dm.Sq * dm.Hq + h) * dm.D;
+    load_bf16_tile<BQ, DP, LD, NT>(Qs + st * TL::Q_ELEMS, q + qoff, qstride, q0, dm.Sq,
+                                   dm.D, width);
+    load_bf16_tile<BQ, DP, LD, NT>(dOs + st * TL::Q_ELEMS, dout + qoff, qstride, q0,
+                                   dm.Sq, dm.D, width);
+    const size_t row0 = static_cast<size_t>(b * dm.Hq + h) * dm.Sq;
+    for (int r = threadIdx.x; r < BQ; r += NT) {
+      const bool ok = q0 + r < dm.Sq;
+      cp_async4(lse_s + st * BQ + r, ok ? lse + row0 + q0 + r : lse, ok ? 4 : 0);
+      cp_async4(dl_s + st * BQ + r, ok ? delta + row0 + q0 + r : delta, ok ? 4 : 0);
+    }
+  };
+
+  load_bf16_tile<BK, DP, LD, NT>(Ks, k + koff, kstride, k0, dm.Sk, dm.D, width);
+  load_bf16_tile<BK, DP, LD, NT>(Vs, v + koff, kstride, k0, dm.Sk, dm.D, width);
+  if (total > 0) issue(0, 0);
+  cp_async_commit();
+
+  float dka[DW / 2], dva[DW / 2];                   // DW / 8 column blocks x 4
+#pragma unroll
+  for (int i = 0; i < DW / 2; ++i) dka[i] = dva[i] = 0.f;
+  // ldmatrix row addresses: K and V rows of this warp's keys (A of S^T and
+  // dP^T), Q and dO rows (B, two 8-query blocks), Q and dO (B of dK and
+  // dV, .trans, two 8-column blocks), staged P^T and ds^T (A, NS > 1)
+  const __nv_bfloat16* ka = Ks + (16 * kb + (l & 15)) * LD + (l >> 4) * 8;
+  const __nv_bfloat16* va = Vs + (16 * kb + (l & 15)) * LD + (l >> 4) * 8;
+  const int q_lane = ((l & 7) + ((l >> 4) << 3)) * LD + ((l >> 3) & 1) * 8;
+  const int t_lane = ((l & 7) + ((l >> 3) & 1) * 8) * LD + (l >> 4) * 8;
+  [[maybe_unused]] const int p_lane = (16 * kb + (l & 15)) * PLD + (l >> 4) * 8;
+
+  for (int it = 0; it < total; ++it) {
+    const int h = hk * rep + it / per, q0 = (qs + it % per) * BQ;
+    const int bh = b * dm.Hq + h;
+    cp_async_wait<0>();
+    __syncthreads();  // this item has landed; the other stage (and P^T, ds^T) consumed
+    if (it + 1 < total) {
+      issue(it + 1, (it + 1) & 1);
+      cp_async_commit();
+    }
+    // this warp's keys past the diagonal of its queries, and of all the
+    // tile's
+    const bool hidden = causal && key_base > q0 + q_lo + QW - 1 + offset;
+    const bool hidden_all = causal && key_base > q0 + BQ - 1 + offset;
+    if (NS == 1 && hidden) continue;
+    const __nv_bfloat16* Qt = Qs + (it & 1) * TL::Q_ELEMS;
+    const __nv_bfloat16* dOt = dOs + (it & 1) * TL::Q_ELEMS;
+    const float* ls = lse_s + (it & 1) * BQ;
+    const float* dls = dl_s + (it & 1) * BQ;
+    const uint32_t seed_bh =
+        dr.on ? mix_seed(static_cast<uint32_t>(dr.seed[0]), bh) : 0u;
+
+    // P^T (dropped) and ds^T of this warp's keys and queries as bf16 A
+    // fragments: 16 keys x QW queries
+    uint32_t pa[QW / 16][4], sa[QW / 16][4];
+    if (!hidden) {
+      float st[QW / 2], dpt[QW / 2];
+#pragma unroll
+      for (int i = 0; i < QW / 2; ++i) st[i] = dpt[i] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        ldsm_x4(ak, ka + 16 * kk);
+        ldsm_x4(av, va + 16 * kk);
+#pragma unroll
+        for (int nb = 0; nb < QW / 16; ++nb) {
+          uint32_t bq[4], bo[4];
+          ldsm_x4(bq, Qt + (q_lo + 16 * nb) * LD + q_lane + 16 * kk);
+          ldsm_x4(bo, dOt + (q_lo + 16 * nb) * LD + q_lane + 16 * kk);
+          mma_bf16(st + 8 * nb, ak, bq[0], bq[1]);
+          mma_bf16(st + 8 * nb + 4, ak, bq[2], bq[3]);
+          mma_bf16(dpt + 8 * nb, av, bo[0], bo[1]);
+          mma_bf16(dpt + 8 * nb + 4, av, bo[2], bo[3]);
+        }
+      }
+      // masks where a key or query edge or the diagonal cuts, and
+      // everywhere under the Mask
+      const bool cut = MASK || key_base + 16 > dm.Sk || q0 + q_lo + QW > dm.Sq ||
+                       (causal && key_base + 15 > q0 + q_lo + offset);
+#pragma unroll
+      for (int i = 0; i < QW / 8; ++i) {
+        // this lane's queries rl, rl + 1 of the tile (columns 2 (l % 4), + 1
+        // of query block i)
+        const int rl = q_lo + 8 * i + 2 * (l & 3);
+        const float2 lsv = *reinterpret_cast<const float2*>(ls + rl);
+        const float2 dlv = *reinterpret_cast<const float2*>(dls + rl);
+        float pv[4], dsv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = q0 + rl + (j & 1), c = key_base + (l >> 2) + 8 * (j >> 1);
+          const float lsj = (j & 1) ? lsv.y : lsv.x;
+          const float neg_lse = -(lsj == -INFINITY ? 0.f : lsj) * kLog2e;
+          float x = fmaf(st[4 * i + j], scale_log2, neg_lse);
+          if constexpr (MASK) {
+            if (mk.bias && r < dm.Sq && c < dm.Sk)
+              x = fmaf(__fadd_rn(__fmul_rn(st[4 * i + j], scale), bias_at(mk, b, h, r, c)),
+                       kLog2e, neg_lse);
+          }
+          float p = ex2_ftz(x);
+          if (cut) {
+            if constexpr (MASK) {
+              if (r >= dm.Sq || !visible(mk, dm, b, r, c, causal, offset)) p = 0.f;
+            } else if (r >= dm.Sq || c >= dm.Sk || (causal && c > r + offset)) {
+              p = 0.f;
+            }
+          }
+          float pd = p, dpv = dpt[4 * i + j];
+          if (dr.on) {
+            const bool kp = keep(seed_bh, r, c, dm.Sk, dr.thresh);
+            pd = kp ? p * dr.keep_scale : 0.f;
+            dpv = kp ? dpv * dr.keep_scale : 0.f;
+          }
+          pv[j] = pd;
+          dsv[j] = p * (dpv - ((j & 1) ? dlv.y : dlv.x));
+        }
+        pa[i >> 1][2 * (i & 1)] = pack_bf16(pv[0], pv[1]);
+        pa[i >> 1][2 * (i & 1) + 1] = pack_bf16(pv[2], pv[3]);
+        sa[i >> 1][2 * (i & 1)] = pack_bf16(dsv[0], dsv[1]);
+        sa[i >> 1][2 * (i & 1) + 1] = pack_bf16(dsv[2], dsv[3]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < QW / 16; ++i)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) pa[i][x] = sa[i][x] = 0u;
+    }
+
+    if constexpr (NS == 1) {
+      // dV += P^T dO, dK += ds^T Q
+#pragma unroll
+      for (int qc = 0; qc < BQ / 16; ++qc)
+#pragma unroll
+        for (int nd = 0; nd < DP / 16; ++nd) {
+          uint32_t bo[4], bq[4];
+          ldsm_x4_trans(bo, dOt + 16 * qc * LD + t_lane + 16 * nd);
+          ldsm_x4_trans(bq, Qt + 16 * qc * LD + t_lane + 16 * nd);
+          mma_bf16(dva + 8 * nd, pa[qc], bo[0], bo[1]);
+          mma_bf16(dva + 8 * nd + 4, pa[qc], bo[2], bo[3]);
+          mma_bf16(dka + 8 * nd, sa[qc], bq[0], bq[1]);
+          mma_bf16(dka + 8 * nd + 4, sa[qc], bq[2], bq[3]);
+        }
+    } else {
+      // stage this warp's fragments (rows l / 4 (+ 8), columns 2 (l % 4)
+      // (+ 8) of each 16 x 16 block), then each warp takes its keys'
+      // P^T and ds^T over all BQ queries for its DW columns
+#pragma unroll
+      for (int qc = 0; qc < QW / 16; ++qc)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int at = (16 * kb + (l >> 2) + 8 * (x & 1)) * PLD + q_lo + 16 * qc +
+                         2 * (l & 3) + 8 * (x >> 1);
+          *reinterpret_cast<uint32_t*>(Pst + at) = pa[qc][x];
+          *reinterpret_cast<uint32_t*>(dSst + at) = sa[qc][x];
+        }
+      __syncthreads();
+      if (!hidden_all) {
+#pragma unroll
+        for (int qc = 0; qc < BQ / 16; ++qc) {
+          uint32_t ap[4], as[4];
+          ldsm_x4(ap, Pst + p_lane + 16 * qc);
+          ldsm_x4(as, dSst + p_lane + 16 * qc);
+#pragma unroll
+          for (int nd = 0; nd < DW / 16; ++nd) {
+            uint32_t bo[4], bq[4];
+            ldsm_x4_trans(bo, dOt + 16 * qc * LD + t_lane + d_lo + 16 * nd);
+            ldsm_x4_trans(bq, Qt + 16 * qc * LD + t_lane + d_lo + 16 * nd);
+            mma_bf16(dva + 8 * nd, ap, bo[0], bo[1]);
+            mma_bf16(dva + 8 * nd + 4, ap, bo[2], bo[3]);
+            mma_bf16(dka + 8 * nd, as, bq[0], bq[1]);
+            mma_bf16(dka + 8 * nd + 4, as, bq[2], bq[3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // dk = scale dK, dv = dV; column pairs as one 4-byte store where the
+  // rows allow
+  __nv_bfloat16* dkb = dk + koff;
+  __nv_bfloat16* dvb = dv + koff;
+  const bool pairs = ((reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
+                       (2u * dm.D)) & 3) == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = key_base + (l >> 2) + 8 * r;
+    if (row >= dm.Sk) continue;
+    __nv_bfloat16* krow = dkb + static_cast<size_t>(row) * kstride;
+    __nv_bfloat16* vrow = dvb + static_cast<size_t>(row) * kstride;
+#pragma unroll
+    for (int i = 0; i < DW / 8; ++i) {
+      const int c = d_lo + 8 * i + 2 * (l & 3);
+      const float k0v = dka[4 * i + 2 * r] * scale, k1v = dka[4 * i + 2 * r + 1] * scale;
+      const float v0v = dva[4 * i + 2 * r], v1v = dva[4 * i + 2 * r + 1];
+      if (pairs) {
+        if (c < dm.D) {
+          *reinterpret_cast<uint32_t*>(krow + c) = pack_bf16(k0v, k1v);
+          *reinterpret_cast<uint32_t*>(vrow + c) = pack_bf16(v0v, v1v);
+        }
+      } else {
+        if (c < dm.D) {
+          krow[c] = __float2bfloat16(k0v);
+          vrow[c] = __float2bfloat16(v0v);
+        }
+        if (c + 1 < dm.D) {
+          krow[c + 1] = __float2bfloat16(k1v);
+          vrow[c + 1] = __float2bfloat16(v1v);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1673,12 +2207,15 @@ constexpr size_t fwd_ring_smem() {
 }
 
 // fp32 up to DP = 128 takes fwd_fp32_kernel, dq_fp32_kernel and
-// dkv_fp32_kernel; bf16 and DP = 256 the one-tile kernels, but for the
-// bf16 forward: fwd_mma_kernel at every DP
+// dkv_fp32_kernel, fp32 at DP = 256 the one-tile kernels; bf16 takes
+// fwd_mma_kernel (kMma), dq_mma_kernel and dkv_mma_kernel (kMmaBwd) at
+// every DP
 template <typename T, int DP>
 constexpr bool kRing = std::is_same<T, float>::value && DP <= 128;
 template <typename T>
 constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+template <typename T>
+constexpr bool kMmaBwd = std::is_same<T, __nv_bfloat16>::value;
 
 template <int DP, bool MASK>
 cudaError_t launch_fwd_mma(const Args& a, cudaStream_t s) {
@@ -1694,68 +2231,110 @@ cudaError_t launch_fwd_mma(const Args& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <int DP, bool MASK>
+cudaError_t launch_dq_mma(const Args& a, cudaStream_t s) {
+  using TL = DqTile<DP, MASK>;
+  static bool smem_set = false;
+  const cudaError_t err = allow_smem(dq_mma_kernel<DP, MASK>, TL::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const int nq = (a.dm.Sq + TL::BQ - 1) / TL::BQ;
+  dq_mma_kernel<DP, MASK><<<dim3(nq, a.dm.B * a.dm.Hq), TL::THREADS, TL::SMEM, s>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
+      a.lse, a.delta, static_cast<__nv_bfloat16*>(a.out), a.dm, a.scale, a.causal, a.dr,
+      a.mk);
+  return cudaGetLastError();
+}
+
+template <int DP, bool MASK>
+cudaError_t launch_dkv_mma(const Args& a, cudaStream_t s) {
+  using TL = DkvTile<DP, MASK>;
+  static bool smem_set = false;
+  const cudaError_t err = allow_smem(dkv_mma_kernel<DP, MASK>, TL::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const int nk = (a.dm.Sk + TL::BK - 1) / TL::BK;
+  dkv_mma_kernel<DP, MASK><<<dim3(nk, a.dm.B * a.dm.Hk), TL::THREADS, TL::SMEM, s>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
+      a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
+      a.dm, a.scale, a.causal, a.dr, a.mk);
+  return cudaGetLastError();
+}
+
 template <typename T, int DP>
 cudaError_t launch_pass(Pass pass, const Args& a, cudaStream_t s) {
-  constexpr int BQ = Tile<DP>::BQ, BK = Tile<DP>::BK;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  const int nq = (a.dm.Sq + BQ - 1) / BQ, nk = (a.dm.Sk + BK - 1) / BK;
-  // per (T, DP): by pass, without and with the Mask
-  static bool smem_set[3][2] = {};
   const bool mask = a.mk.bias || a.mk.qseg || a.mk.dbias;
-  cudaError_t err;
   if constexpr (kMma<T>) {
     if (pass == Pass::kFwd)
       return mask ? launch_fwd_mma<DP, true>(a, s) : launch_fwd_mma<DP, false>(a, s);
   }
-  if (pass == Pass::kFwd) {
-    if constexpr (kRing<T, DP>) {
-      constexpr size_t smem = fwd_ring_smem<DP>();
-      auto kern = mask ? fwd_fp32_kernel<DP, true> : fwd_fp32_kernel<DP, false>;
-      if ((err = allow_smem(kern, smem, smem_set[0][mask])) != cudaSuccess) return err;
-      kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
-          q, k, v, static_cast<T*>(a.out), a.lse_out, a.dm, a.scale, a.causal, a.dr, a.mk);
-    } else if constexpr (!kMma<T>) {
-      constexpr size_t smem = fwd_smem<DP>();
-      auto kern = mask ? fwd_kernel<T, DP, BQ, BK, true> : fwd_kernel<T, DP, BQ, BK, false>;
-      if ((err = allow_smem(kern, smem, smem_set[0][mask])) != cudaSuccess) return err;
-      kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
-          q, k, v, static_cast<T*>(a.out), a.lse_out, a.dm, a.scale, a.causal, a.dr, a.mk);
-    }
-  } else if constexpr (kRing<T, DP>) {
-    if (pass == Pass::kDq) {
-      constexpr size_t smem = ring_smem<DP>(Pass::kDq);
-      auto kern = mask ? dq_fp32_kernel<DP, true> : dq_fp32_kernel<DP, false>;
-      if ((err = allow_smem(kern, smem, smem_set[1][mask])) != cudaSuccess) return err;
-      kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
-          q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.out), a.dm, a.scale, a.causal,
-          a.dr, a.mk);
-    } else {
-      constexpr size_t smem = ring_smem<DP>(Pass::kDkv);
-      auto kern = mask ? dkv_fp32_kernel<DP, true> : dkv_fp32_kernel<DP, false>;
-      if ((err = allow_smem(kern, smem, smem_set[2][mask])) != cudaSuccess) return err;
-      kern<<<dim3(nk, a.dm.B * a.dm.Hk), kThreads, smem, s>>>(
-          q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-          a.dm, a.scale, a.causal, a.dr, a.mk);
-    }
-  } else if (pass == Pass::kDq) {
-    constexpr size_t smem = dq_smem<DP>();
-    auto kern = mask ? dq_kernel<T, DP, BQ, BK, true> : dq_kernel<T, DP, BQ, BK, false>;
-    if ((err = allow_smem(kern, smem, smem_set[1][mask])) != cudaSuccess) return err;
-    kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.out), a.dm, a.scale, a.causal, a.dr,
-        a.mk);
-  } else {
-    constexpr size_t smem = dkv_smem<DP>();
-    auto kern = mask ? dkv_kernel<T, DP, BQ, BK, true> : dkv_kernel<T, DP, BQ, BK, false>;
-    if ((err = allow_smem(kern, smem, smem_set[2][mask])) != cudaSuccess) return err;
-    kern<<<dim3(nk, a.dm.B * a.dm.Hk), kThreads, smem, s>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.dm,
-        a.scale, a.causal, a.dr, a.mk);
+  if constexpr (kMmaBwd<T>) {
+    if (pass == Pass::kDq)
+      return mask ? launch_dq_mma<DP, true>(a, s) : launch_dq_mma<DP, false>(a, s);
+    if (pass == Pass::kDkv)
+      return mask ? launch_dkv_mma<DP, true>(a, s) : launch_dkv_mma<DP, false>(a, s);
   }
-  return cudaGetLastError();
+  if constexpr (kMma<T> && kMmaBwd<T>) {
+    return cudaErrorInvalidValue;  // every bf16 pass returned above
+  } else {
+    constexpr int BQ = Tile<DP>::BQ, BK = Tile<DP>::BK;
+    const T* q = static_cast<const T*>(a.q);
+    const T* k = static_cast<const T*>(a.k);
+    const T* v = static_cast<const T*>(a.v);
+    const T* dout = static_cast<const T*>(a.dout);
+    const int nq = (a.dm.Sq + BQ - 1) / BQ, nk = (a.dm.Sk + BK - 1) / BK;
+    // per (T, DP): by pass, without and with the Mask
+    static bool smem_set[3][2] = {};
+    cudaError_t err;
+    if (pass == Pass::kFwd) {
+      if constexpr (kRing<T, DP>) {
+        constexpr size_t smem = fwd_ring_smem<DP>();
+        auto kern = mask ? fwd_fp32_kernel<DP, true> : fwd_fp32_kernel<DP, false>;
+        if ((err = allow_smem(kern, smem, smem_set[0][mask])) != cudaSuccess) return err;
+        kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
+            q, k, v, static_cast<T*>(a.out), a.lse_out, a.dm, a.scale, a.causal, a.dr, a.mk);
+      } else if constexpr (!kMma<T>) {
+        constexpr size_t smem = fwd_smem<DP>();
+        auto kern = mask ? fwd_kernel<T, DP, BQ, BK, true> : fwd_kernel<T, DP, BQ, BK, false>;
+        if ((err = allow_smem(kern, smem, smem_set[0][mask])) != cudaSuccess) return err;
+        kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
+            q, k, v, static_cast<T*>(a.out), a.lse_out, a.dm, a.scale, a.causal, a.dr, a.mk);
+      }
+    } else if constexpr (kRing<T, DP>) {
+      if (pass == Pass::kDq) {
+        constexpr size_t smem = ring_smem<DP>(Pass::kDq);
+        auto kern = mask ? dq_fp32_kernel<DP, true> : dq_fp32_kernel<DP, false>;
+        if ((err = allow_smem(kern, smem, smem_set[1][mask])) != cudaSuccess) return err;
+        kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
+            q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.out), a.dm, a.scale, a.causal,
+            a.dr, a.mk);
+      } else {
+        constexpr size_t smem = ring_smem<DP>(Pass::kDkv);
+        auto kern = mask ? dkv_fp32_kernel<DP, true> : dkv_fp32_kernel<DP, false>;
+        if ((err = allow_smem(kern, smem, smem_set[2][mask])) != cudaSuccess) return err;
+        kern<<<dim3(nk, a.dm.B * a.dm.Hk), kThreads, smem, s>>>(
+            q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+            a.dm, a.scale, a.causal, a.dr, a.mk);
+      }
+    } else if constexpr (!kMmaBwd<T>) {
+      if (pass == Pass::kDq) {
+        constexpr size_t smem = dq_smem<DP>();
+        auto kern = mask ? dq_kernel<T, DP, BQ, BK, true> : dq_kernel<T, DP, BQ, BK, false>;
+        if ((err = allow_smem(kern, smem, smem_set[1][mask])) != cudaSuccess) return err;
+        kern<<<dim3(nq, a.dm.B * a.dm.Hq), kThreads, smem, s>>>(
+            q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.out), a.dm, a.scale, a.causal,
+            a.dr, a.mk);
+      } else {
+        constexpr size_t smem = dkv_smem<DP>();
+        auto kern = mask ? dkv_kernel<T, DP, BQ, BK, true> : dkv_kernel<T, DP, BQ, BK, false>;
+        if ((err = allow_smem(kern, smem, smem_set[2][mask])) != cudaSuccess) return err;
+        kern<<<dim3(nk, a.dm.B * a.dm.Hk), kThreads, smem, s>>>(
+            q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
+            a.dm, a.scale, a.causal, a.dr, a.mk);
+      }
+    }
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>

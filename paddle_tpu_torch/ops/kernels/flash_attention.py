@@ -1,9 +1,10 @@
 """Flash attention: the CUDA kernels ``csrc/flash_attention_sm90.cu``
 (forward, dq and dkv on the tensor cores by wgmma and TMA) and
-``csrc/flash_attention.cu`` (the bf16 forward on the tensor cores by
-mma.sync, ``fwd_mma_kernel``; dq and dkv, and the fp32 forward, as fp32
-FMA loops, blocked in registers behind a cp.async ring in fp32 up to head
-dim 128), and their plain PyTorch versions.
+``csrc/flash_attention.cu`` (the bf16 forward, dq and dkv on the tensor
+cores by mma.sync, ``fwd_mma_kernel``, ``dq_mma_kernel`` and
+``dkv_mma_kernel``; the fp32 forward, dq and dkv as fp32 FMA loops,
+blocked in registers behind a cp.async ring up to head dim 128), and their
+plain PyTorch versions.
 
 Counterpart of ``paddle_tpu/ops/pallas/flash_attention.py``: the plain
 functions compute what its Pallas kernels ``_fwd_kernel``,
@@ -41,8 +42,8 @@ fallback: bf16 operands with a head dim that is a multiple of 8 up to 128
 and 16-byte aligned take the wgmma kernels (TMA needs those strides and
 alignments), everything else (fp32; bf16 head dims above 128 or not a
 multiple of 8; operands off 16-byte boundaries) the FMA route, where the
-bf16 forward is ``fwd_mma_kernel`` on the tensor cores (mma.sync takes
-any head dim and alignment) and the rest FFMA kernels.
+bf16 forward, dq and dkv run on the tensor cores by mma.sync (which takes
+any head dim and alignment) and fp32 on FFMA kernels.
 fp32 stays off the tensor cores: its contract is fp32 sums in the plain
 version's order, which TF32 products, even split into three passes
 (3xTF32), do not hold (PERF.md).
@@ -54,13 +55,13 @@ every padding mask) is read once per key, "plane" (every other bias, and
 any with segments or dbias) element by element.
 Each kernel counts its own launches: ``flash_fwd.launches``,
 ``flash_dq.launches`` and ``flash_dkv.launches`` the FMA route's FFMA
-kernels', ``flash_fwd.mma.launches`` its bf16 forward's
-(``fwd_mma_kernel``), ``flash_fwd.wgmma.launches``,
-``flash_dq.wgmma.launches`` and ``flash_dkv.wgmma.launches`` the wgmma
-kernels'; a launch with a bias (its own template instantiation on both
-routes) counts instead on ``.bias.launches`` (FFMA),
-``flash_fwd.mma_bias.launches`` (the bf16 FMA-route forward) or
-``.wgmma_bias.launches`` (wgmma, the "plane" class), and a wgmma launch
+kernels' (fp32), ``flash_fwd.mma.launches``, ``flash_dq.mma.launches`` and
+``flash_dkv.mma.launches`` its bf16 mma.sync kernels',
+``flash_fwd.wgmma.launches``, ``flash_dq.wgmma.launches`` and
+``flash_dkv.wgmma.launches`` the wgmma kernels'; a launch with a bias (its
+own template instantiation on both routes) counts instead on
+``.bias.launches`` (FFMA), ``.mma_bias.launches`` (bf16 on the FMA route)
+or ``.wgmma_bias.launches`` (wgmma, the "plane" class), and a wgmma launch
 of the "keys" class on ``.wgmma_keybias.launches``.
 ``flash_attention_ext`` is the differentiable entry (a
 ``torch.autograd.Function`` saving ``(q, k, v, out, lse)`` like
@@ -476,16 +477,17 @@ def flash_route(dtype: torch.dtype, head_dim: int,
     ``H * D * 2`` bytes are multiples of 16, as TMA requires) and every
     operand address 16-byte aligned; ``"fma"`` (``csrc/flash_attention.cu``)
     otherwise. A bias or segments do not enter the choice. On the FMA
-    route a bf16 forward, at any head dim up to 256 and any alignment,
-    runs ``fwd_mma_kernel`` (mma.sync m16n8k16 behind a cp.async ring, p
-    rounded to bf16 in registers as the contract asks); fp32 with
-    ``head_dim`` up to 128 runs ``fwd_fp32_kernel``, ``dq_fp32_kernel``
-    and ``dkv_fp32_kernel`` (FFMA blocked in registers, a cp.async ring),
-    bf16 dq and dkv and wider fp32 heads the one-tile FFMA kernels; the
-    FFMA kernels sum in the plain version's order, so in fp32 they give
-    its bits wherever cuBLAS sums in that order too. fp32 never takes the
-    tensor cores: TF32 products, even as 3xTF32, miss the fp32
-    tolerance."""
+    route bf16, at any head dim up to 256 and any alignment, runs
+    ``fwd_mma_kernel``, ``dq_mma_kernel`` and ``dkv_mma_kernel``
+    (mma.sync m16n8k16 behind a cp.async ring, p and ds rounded to bf16
+    in registers as the contract asks; dkv splits D between two warps at
+    head dims above 128); fp32 with ``head_dim`` up to 128 runs
+    ``fwd_fp32_kernel``, ``dq_fp32_kernel`` and ``dkv_fp32_kernel`` (FFMA
+    blocked in registers, a cp.async ring), wider fp32 heads the one-tile
+    FFMA kernels; the FFMA kernels sum in the plain version's order, so
+    in fp32 they give its bits wherever cuBLAS sums in that order too.
+    fp32 never takes the tensor cores: TF32 products, even as 3xTF32,
+    miss the fp32 tolerance."""
     if (dtype == torch.bfloat16 and head_dim % 8 == 0
             and 0 < head_dim <= WGMMA_MAX_HEAD_DIM
             and all(a % 16 == 0 for a in addresses)):
@@ -553,7 +555,7 @@ def _launch_on(route: str, wrapper, entry: str, tensors, args,
     """Launch C entry ``entry`` (``<entry>_sm90`` of
     ``flash_attention_sm90`` on the wgmma route, else of
     ``flash_attention``), counted on ``wrapper``'s counter of that route
-    (a bf16 forward on the FMA route: ``flash_fwd.mma``, fwd_mma_kernel),
+    (bf16 on the FMA route: ``.mma``, the mma.sync kernels),
     and with a ``bias`` on the counter of that kernel's bias
     instantiation (with ``keys``, the wgmma "keys" class's); a non-zero
     CUDA error code raises."""
@@ -564,7 +566,7 @@ def _launch_on(route: str, wrapper, entry: str, tensors, args,
         entry += "_sm90"
     else:
         lib = _build.load("flash_attention")
-        if wrapper is flash_fwd and tensors[0].dtype == torch.bfloat16:
+        if tensors[0].dtype == torch.bfloat16:
             counter = wrapper.mma_bias if bias is not None else wrapper.mma
         else:
             counter = wrapper.bias if bias is not None else wrapper
@@ -671,10 +673,11 @@ def flash_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
              bias: Optional[torch.Tensor] = None,
              seg: Optional[Segments] = None, dbias: bool = False):
     """dq, or ``(dq, dbias)`` with ``dbias``: a dq kernel on the card, by
-    ``flash_route`` (``flash_dq.wgmma.launches`` or
-    ``flash_dq.launches``, or with a bias ``.wgmma_bias`` / ``.bias``, a
-    "keys" bias on the wgmma route ``.wgmma_keybias``), ``flash_dq_plain``
-    on the CPU."""
+    ``flash_route`` (counted in ``flash_dq.wgmma.launches``,
+    ``flash_dq.mma.launches`` (bf16 on the FMA route, ``dq_mma_kernel``)
+    or ``flash_dq.launches`` (fp32), or with a bias in ``.wgmma_bias`` /
+    ``.mma_bias`` / ``.bias``, a "keys" bias on the wgmma route
+    ``.wgmma_keybias``), ``flash_dq_plain`` on the CPU."""
     return _build.dispatch(flash_dq_plain, _dq_launch, q, k, v, do, lse,
                            delta, causal, scale, rate, seed, bias, seg,
                            dbias)
@@ -684,10 +687,12 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
               rate: float = 0.0, seed: Optional[torch.Tensor] = None,
               bias: Optional[torch.Tensor] = None,
               seg: Optional[Segments] = None):
-    """(dk, dv): a dkv kernel on the card, by ``flash_route``
-    (``flash_dkv.wgmma.launches`` or ``flash_dkv.launches``, or with a
-    bias ``.wgmma_bias`` / ``.bias``, a "keys" bias on the wgmma route
-    ``.wgmma_keybias``), ``flash_dkv_plain`` on the CPU."""
+    """(dk, dv): a dkv kernel on the card, by ``flash_route`` (counted in
+    ``flash_dkv.wgmma.launches``, ``flash_dkv.mma.launches`` (bf16 on the
+    FMA route, ``dkv_mma_kernel``) or ``flash_dkv.launches`` (fp32), or
+    with a bias in ``.wgmma_bias`` / ``.mma_bias`` / ``.bias``, a "keys"
+    bias on the wgmma route ``.wgmma_keybias``), ``flash_dkv_plain`` on
+    the CPU."""
     return _build.dispatch(flash_dkv_plain, _dkv_launch, q, k, v, do, lse,
                            delta, causal, scale, rate, seed, bias, seg)
 
@@ -708,8 +713,8 @@ for _wrapper in (flash_fwd, flash_dq, flash_dkv):
     _wrapper.bias = KernelCount()
     _wrapper.wgmma_bias = KernelCount()
     _wrapper.wgmma_keybias = KernelCount()
-flash_fwd.mma = KernelCount()
-flash_fwd.mma_bias = KernelCount()
+    _wrapper.mma = KernelCount()
+    _wrapper.mma_bias = KernelCount()
 
 
 def _delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:

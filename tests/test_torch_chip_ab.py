@@ -1,6 +1,6 @@
 """chip_ab.py, the on-card A/B of the RMSNorm, CE and fp32 flash
 forward, dq and dkv kernels' design choices, and of the bf16 flash
-forward's on the FMA route: every variant is a rewrite
+forward's, dq's and dkv's on the FMA route: every variant is a rewrite
 of the committed source that still applies, so the script builds what
 its docstring names."""
 import importlib.util
@@ -149,3 +149,37 @@ def test_flash_variants_swap_the_bf16_forward_designs():
                     "bf16 forward, 4 warps and 32-key tiles at DP = 256")]
     assert "static constexpr int WARPS = 4;" in both
     assert "BK = DP == 256 ? 32 : 64;" in both
+
+
+def test_flash_variants_swap_the_bf16_backward_designs():
+    """The bf16 dq and dkv copies: the parent's one-tile dq_kernel /
+    dkv_kernel take bf16 dq and dkv (a routing edit: dq_mma_kernel and
+    dkv_mma_kernel are never launched); the others change one tile
+    constant of ``DqTile`` / ``DkvTile`` or the launch bounds, and leave
+    the text before the backward's section alone. ``--flash-parts``
+    builds each part's copies alone: the parts cover every copy, each
+    with the committed one."""
+    ab = _chip_ab()
+    sources = ab.variant_sources(("flash_attention",))
+    committed = sources[("flash_attention", "committed")]
+    for kernel in ("dq_mma_kernel<DP, MASK><<<",
+                   "dkv_mma_kernel<DP, MASK><<<"):
+        assert kernel in committed
+    parent = sources[("flash_attention", ab.FA_BF16_BWD_PARENT)]
+    assert "constexpr bool kMmaBwd = false;" in parent
+    assert "constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;" \
+        in parent
+    head = committed[:committed.index(
+        "// bf16 dq and dkv on the tensor cores")]
+    for name in ab.BF16_BWD_VARIANTS:
+        text = sources[("flash_attention", name)]
+        assert text.startswith(head) and text != committed, name
+    split = sources[("flash_attention", "bf16 dkv, D split at DP = 128")]
+    assert "static constexpr int NS = DP >= 128 ? 2 : 1;" in split
+    assert set().union(*ab.FLASH_PARTS.values()) == set(ab.FLASH_VARIANTS)
+    assert all("committed" in part for part in ab.FLASH_PARTS.values())
+    only = ab.variant_sources(("flash_attention", "rms_norm"), {
+        "flash_attention": ab.FLASH_PARTS["bf16_bwd"]})
+    assert {v for (n, v) in only if n == "flash_attention"} == set(
+        ab.FLASH_PARTS["bf16_bwd"])
+    assert {v for (n, v) in only if n == "rms_norm"} == set(ab.RMS_VARIANTS)

@@ -483,10 +483,11 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
     dkv. fp32 reaches ``flash_dq`` / ``flash_dkv`` with the fp32 code at
     every head dim: the C entry picks the register-blocked kernels up to
     128 (D = 64, 128) and the one-tile FFMA ones above (D = 160). A bf16
-    forward on the FMA route (misaligned, D = 160, 256, 45) reaches
-    ``flash_fwd`` with the bf16 code, whose C entry launches
-    fwd_mma_kernel, and counts on ``flash_fwd.mma``, not on
-    ``flash_fwd``; its dq and dkv count on ``flash_dq`` / ``flash_dkv``."""
+    forward, dq and dkv on the FMA route (misaligned, D = 160, 256, 45)
+    reach ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` with the bf16
+    code, whose C entries launch fwd_mma_kernel, dq_mma_kernel and
+    dkv_mma_kernel, and count on ``.mma``, not on the wrappers' own
+    (FFMA) counters."""
     libs = {n: _fake_library(n)
             for n in ("flash_attention", "flash_attention_sm90")}
     monkeypatch.setattr(_build, "load", libs.__getitem__)
@@ -495,8 +496,8 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
     do = q.clone() if not misaligned else q
     lse = torch.zeros(1, 4, 8)
     counters = (tfa.flash_fwd, tfa.flash_fwd.wgmma, tfa.flash_fwd.mma,
-                tfa.flash_dq, tfa.flash_dq.wgmma, tfa.flash_dkv,
-                tfa.flash_dkv.wgmma)
+                tfa.flash_dq, tfa.flash_dq.wgmma, tfa.flash_dq.mma,
+                tfa.flash_dkv, tfa.flash_dkv.wgmma, tfa.flash_dkv.mma)
     before = [c.launches for c in counters]
     tfa._fwd_launch(q, k, v, True, 0.125, 0.0, None)
     tfa._dq_launch(q, k, v, do, lse, lse, True, 0.125, 0.0, None)
@@ -505,7 +506,7 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
     sm90 = [fn for fn, _ in libs["flash_attention_sm90"].calls]
     fma = [fn for fn, args in libs["flash_attention"].calls]
     if entry == "sm90":
-        assert moved == [0, 1, 0, 0, 1, 0, 1]
+        assert moved == [0, 1, 0, 0, 1, 0, 0, 1, 0]
         assert (sm90, fma) == (["flash_fwd_sm90", "flash_dq_sm90",
                                 "flash_dkv_sm90"], [])
         for fn, args in libs["flash_attention_sm90"].calls:
@@ -514,7 +515,7 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
             assert args[-2] == 0
     else:
         mma = int(dtype == torch.bfloat16)
-        assert moved == [1 - mma, 0, mma, 1, 0, 1, 0]
+        assert moved == [1 - mma, 0, mma] * 3
         assert (sm90, fma) == ([], ["flash_fwd", "flash_dq", "flash_dkv"])
         codes = {args[-2] for _, args in libs["flash_attention"].calls}
         assert codes == {_build.DTYPE_CODES[dtype]}
@@ -522,8 +523,8 @@ def test_launches_follow_the_route_with_the_c_signatures(monkeypatch, dtype,
 
 def _all_counters():
     return [c for w in (tfa.flash_fwd, tfa.flash_dq, tfa.flash_dkv)
-            for c in (w, w.wgmma, w.bias, w.wgmma_bias, w.wgmma_keybias)] + [
-        tfa.flash_fwd.mma, tfa.flash_fwd.mma_bias]
+            for c in (w, w.wgmma, w.bias, w.wgmma_bias, w.wgmma_keybias,
+                      w.mma, w.mma_bias)]
 
 
 def test_cpu_call_counts_no_launch_on_either_route():
@@ -578,23 +579,27 @@ def test_bias_launches_count_on_their_own_instantiation(monkeypatch, dtype,
                          for c in counters]
 
 
-def test_fma_route_bf16_forward_counts_its_bias_instantiation(monkeypatch):
-    """On the FMA route a bf16 forward with a bias (fwd_mma_kernel's Mask
-    instantiation) counts on ``flash_fwd.mma_bias``, one with segment
-    words alone on ``flash_fwd.mma``; dq and dkv on ``.bias`` and on the
-    bias-free counters as before."""
+@pytest.mark.parametrize("d,misaligned", [(64, True), (160, False),
+                                          (256, False), (45, False)])
+def test_fma_route_bf16_forward_counts_its_bias_instantiation(monkeypatch, d,
+                                                              misaligned):
+    """On the FMA route a bf16 forward, dq or dkv with a bias (the Mask
+    instantiations of fwd_mma_kernel, dq_mma_kernel and dkv_mma_kernel)
+    counts on ``.mma_bias``, one with segment words alone on ``.mma``,
+    at every head dim and alignment that takes the route; never on the
+    FFMA kernels' ``flash_dq`` / ``flash_dkv`` / ``.bias``."""
     libs = {n: _fake_library(n)
             for n in ("flash_attention", "flash_attention_sm90")}
     monkeypatch.setattr(_build, "load", libs.__getitem__)
     monkeypatch.setattr(_build, "stream", lambda t: ctypes.c_void_p(0))
-    q, k, v = _operands(torch.bfloat16, 64, 4, 2, True)
+    q, k, v = _operands(torch.bfloat16, d, 4, 2, misaligned)
     lse = torch.zeros(1, 4, 8)
     words = tfa.encode_segments(torch.zeros(1, 8, dtype=torch.int32))
     seg = tfa.Segments(words, words, False)
     fwd, dq, dkv = tfa.flash_fwd, tfa.flash_dq, tfa.flash_dkv
     for mask, moves in (((torch.zeros(1, 1, 1, 8), None),
-                         (fwd.mma_bias, dq.bias, dkv.bias)),
-                        ((None, seg), (fwd.mma, dq, dkv))):
+                         (fwd.mma_bias, dq.mma_bias, dkv.mma_bias)),
+                        ((None, seg), (fwd.mma, dq.mma, dkv.mma))):
         counters = _all_counters()
         before = [c.launches for c in counters]
         tfa._fwd_launch(q, k, v, False, 0.125, 0.0, None, *mask)
@@ -681,6 +686,141 @@ def test_mma_forward_order_passes_the_chip_check(d, sq, sk, hq, hk):
     _, lse_bad = _mma_fwd(q, k, v, scale, True, log2_lse=True)
     with pytest.raises(AssertionError):
         cs.check_close("lse", lse_bad, lse_ref, cs.LSE_RTOL, quiet=True)
+
+
+def _chunked(a, bt):
+    """a @ bt summed as m16n8k16 adds: each 16-wide chunk of the
+    reduction exact (fp64), added to the fp32 accumulator in order."""
+    acc = torch.zeros(a.shape[:-1] + bt.shape[-1:], dtype=torch.float32)
+    for c0 in range(0, a.shape[-1], 16):
+        acc = (acc.double() + a[..., c0:c0 + 16].double()
+               @ bt[..., c0:c0 + 16, :].double()).float()
+    return acc
+
+
+def _mma_probs(s, lse, scale, hidden):
+    """p as dq_mma_kernel / dkv_mma_kernel take it: one FFMA of the fp32
+    product by c = fp32(scale log2 e) and -log2(e) lse (an lse of -inf
+    read as 0), then 2^x flushed below 2^-126; 0 where ``hidden``."""
+    c = float(np.float32(np.float32(scale) * np.float32(math.log2(math.e))))
+    lse = torch.where(lse == float("-inf"), 0.0, lse)
+    neg = (-(lse * np.float32(math.log2(math.e)))).float()
+    p = torch.exp2((s.double() * c + neg.double()).float())
+    return torch.where(hidden | (p < 2.0 ** -126), 0.0, p)
+
+
+def _mma_dq(q, k, v, do, lse, delta, scale, causal, rate=0.0, seed=None,
+            block=64, sub_delta=True):
+    """dq_mma_kernel's order of work, in torch: key tiles of ``block``;
+    S and dP as 16-wide chunked fp32 sums; p in the exp2 domain
+    (``_mma_probs``); dP dropped by the keep-mask and keep scale; ds =
+    p (dP - delta) in fp32, rounded to bf16 before dQ += ds K (chunked
+    over keys); dQ scaled at the end (``sub_delta`` False: a planted
+    fault)."""
+    b, sq, hq, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    rep = hq // hk
+    qd, dod = (x.float().permute(0, 2, 1, 3) for x in (q, do))
+    kd, vd = (x.float().permute(0, 2, 1, 3).repeat_interleave(rep, 1)
+              for x in (k, v))
+    keep = (tfa.dropout_keep_mask(seed, b * hq, sq, sk, rate).reshape(
+        b, hq, sq, sk) if rate else None)
+    rows = torch.arange(sq)[:, None]
+    acc = torch.zeros(b, hq, sq, d)
+    for k0 in range(0, sk, block):
+        kt, vt = kd[:, :, k0:k0 + block], vd[:, :, k0:k0 + block]
+        s = _chunked(qd, kt.transpose(-1, -2))
+        dp = _chunked(dod, vt.transpose(-1, -2))
+        cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        hidden = (cols >= sk) | (causal & (cols > rows + (sk - sq)))
+        p = _mma_probs(s, lse[..., None], scale, hidden)
+        if keep is not None:
+            dp = torch.where(keep[..., k0:k0 + block],
+                             dp * tfa._keep_scale(rate), 0.0)
+        ds = p * (dp - delta[..., None]) if sub_delta else p * dp
+        acc = acc + _chunked(ds.bfloat16(), kt)
+    return (acc * scale).permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _mma_dkv(q, k, v, do, lse, delta, scale, causal, rate=0.0, seed=None,
+             block=64, heads=None):
+    """dkv_mma_kernel's order of work, in torch: for each kv head, the
+    group's q heads in turn (``heads``: how many; fewer is a planted
+    fault), q tiles of ``block`` rows; S^T and dP^T as 16-wide chunked
+    fp32 sums; p in the exp2 domain; the dropped p and ds^T rounded to
+    bf16 before dV += P^T dO and dK += ds^T Q (chunked over queries);
+    dK scaled at the end."""
+    b, sq, hq, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    rep = hq // hk
+    qd, dod = (x.float().permute(0, 2, 1, 3) for x in (q, do))
+    kd, vd = (x.float().permute(0, 2, 1, 3) for x in (k, v))
+    keep = (tfa.dropout_keep_mask(seed, b * hq, sq, sk, rate).reshape(
+        b, hq, sq, sk) if rate else None)
+    keys = torch.arange(sk)[:, None]
+    dk = torch.zeros(b, hk, sk, d)
+    dv = torch.zeros(b, hk, sk, d)
+    for g in range(rep if heads is None else heads):
+        h = torch.arange(hk) * rep + g
+        for q0 in range(0, sq, block):
+            qt, dot = qd[:, h, q0:q0 + block], dod[:, h, q0:q0 + block]
+            st = _chunked(kd, qt.transpose(-1, -2))
+            dpt = _chunked(vd, dot.transpose(-1, -2))
+            qrows = torch.arange(q0, q0 + qt.shape[2])[None, :]
+            hidden = causal & (keys > qrows + (sk - sq))
+            p = _mma_probs(st, lse[:, h, None, q0:q0 + block], scale,
+                           hidden)
+            pd = p
+            if keep is not None:
+                kp = keep[:, h, q0:q0 + block].transpose(-1, -2)
+                pd = torch.where(kp, p * tfa._keep_scale(rate), 0.0)
+                dpt = torch.where(kp, dpt * tfa._keep_scale(rate), 0.0)
+            dst = p * (dpt - delta[:, h, None, q0:q0 + block])
+            dv = dv + _chunked(pd.bfloat16(), dot)
+            dk = dk + _chunked(dst.bfloat16(), qt)
+    return ((dk * scale).permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+@pytest.mark.parametrize("d,sq,sk,hq,hk,rate", [
+    (256, 72, 100, 2, 1, 0.0), (45, 100, 130, 2, 1, 0.1),
+    (45, 130, 100, 2, 2, 0.0)])
+def test_mma_backward_order_passes_the_chip_check(d, sq, sk, hq, hk, rate):
+    """dq_mma_kernel's and dkv_mma_kernel's order of work (16-wide fp32
+    chunks of every product, p in the exp2 domain, ds and the dropped p
+    rounded to bf16 before their products, dQ and dK scaled at the end)
+    stays inside chip_smoke.py's unchanged bf16 FLASH_RTOL["bwd"]
+    against flash_dq_plain / flash_dkv_plain at D = 256 and odd D = 45,
+    causal with a ragged key tail (and rows that see no key at Sq > Sk),
+    GQA 2/1 (the dkv group sum), with dropout 0.1; delta not subtracted
+    (dq) and one q head of the group summed (dkv) fail it."""
+    cs = _chip_smoke()
+    rng = np.random.RandomState(13)
+    mk = lambda s, h: torch.from_numpy(rng.standard_normal(  # noqa: E731
+        (1, s, h, d)).astype(np.float32)).bfloat16()
+    q, k, v, do = mk(sq, hq), mk(sk, hk), mk(sk, hk), mk(sq, hq)
+    scale = 1.0 / math.sqrt(d)
+    seed = torch.tensor([2024], dtype=torch.int32)
+    args = (True, scale, rate, seed)
+    out, lse = tfa.flash_fwd_plain(q, k, v, *args)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq_ref = tfa.flash_dq_plain(q, k, v, do, lse, delta, *args)
+    dk_ref, dv_ref = tfa.flash_dkv_plain(q, k, v, do, lse, delta, *args)
+    tol = cs.FLASH_RTOL["bwd"][torch.bfloat16]
+    mine = (q, k, v, do, lse, delta, scale, True, rate, seed)
+    cs.check_close("dq", _mma_dq(*mine), dq_ref, tol, quiet=True)
+    dk, dv = _mma_dkv(*mine)
+    cs.check_close("dk", dk, dk_ref, tol, quiet=True)
+    cs.check_close("dv", dv, dv_ref, tol, quiet=True)
+    with pytest.raises(AssertionError):
+        cs.check_close("dq", _mma_dq(*mine, sub_delta=False), dq_ref, tol,
+                       quiet=True)
+    if hq > hk:
+        dk1, dv1 = _mma_dkv(*mine, heads=1)
+        with pytest.raises(AssertionError):
+            cs.check_close("dk", dk1, dk_ref, tol, quiet=True)
+        with pytest.raises(AssertionError):
+            cs.check_close("dv", dv1, dv_ref, tol, quiet=True)
 
 
 def _wgmma_fwd(q, k, v, scale, causal, block=128, ln2=True):
@@ -1021,6 +1161,15 @@ def test_ptxas_report_counts_the_fp32_kernels_instructions():
         "fwd_fp32_kernel<128,1>": {"HMMA": 0, "FFMA": 3, "LDS": 1}}
     fwd = f"{ns}10fwd_kernelIfLi64ELi64ELi64ELb0EEEvPKT_"
     assert cs._short_kernel(fwd) == fwd
+    # the FMA route's bf16 backward on the tensor cores, by head dim and Mask
+    for mangled, short in (
+            (f"{ns}13dq_mma_kernelILi256ELb1EEEvPK13__nv_bfloat16S3_S3_S3_"
+             "PKfS5_PS1_N3ptk4DimsEfiNS7_7DropoutENS7_4MaskE",
+             "dq_mma_kernel<256,1>"),
+            (f"{ns}14dkv_mma_kernelILi64ELb0EEEvPK13__nv_bfloat16S3_S3_S3_"
+             "PKfS5_PS1_S6_N3ptk4DimsEfiNS7_7DropoutENS7_4MaskE",
+             "dkv_mma_kernel<64,0>")):
+        assert cs._short_kernel(mangled) == short
 
 
 def test_fp32_flash_bound_takes_products_at_3xtf32_beside_ffma():
@@ -1066,6 +1215,32 @@ def test_fp32_oracle_attention_is_checked_and_timed():
                       ("llama_oracle_fp32", "llama-oracle-fp32")):
         assert timed[key] == (case, cs.FMA_KINDS)
         assert tfa.flash_route(torch.float32, cases[case][6]) == "fma"
+
+
+def test_bf16_fma_route_backward_is_counted_checked_and_timed():
+    """chip_smoke.py counts the FMA route's bf16 dq and dkv
+    (dq_mma_kernel, dkv_mma_kernel) on their own counters, beside the
+    forward's, and puts them on the kernels line; it times them at
+    Gemma-7B's attention (D = 256) and at BERT's with its key mask and
+    dropout (their Mask instantiations); its last flash case takes their
+    Mask instantiations at D = 256 with a dbias, so that the earlier
+    cases keep their draws. No main path expects a launch of them."""
+    cs = _chip_smoke()
+    wrappers = cs._wrappers()
+    for kind in ("fwd", "dq", "dkv"):
+        w = getattr(tfa, "flash_" + kind)
+        assert wrappers[f"flash_{kind}_mma"] is w.mma
+        assert wrappers[f"flash_{kind}_mma_bias"] is w.mma_bias
+    timed = {t[0]: t[1:] for t in cs.FLASH_TIMED}
+    assert timed["gemma7b_d256"] == ("gemma7b-d256", cs.FMA_KINDS)
+    assert set(cs.FMA_KINDS) <= set(timed["bert"][1])
+    last = cs.FLASH_CASES[-1]
+    assert last[0] == "d256-full-bias-dbias-bf16" and last[6] == 256
+    assert last[7] == torch.bfloat16 and last[10] == {"bias": "full"}
+    assert tfa.flash_route(torch.bfloat16, last[6]) == "fma"
+    expect = cs._expected_counts(2, 3, "wgmma")
+    assert all(expect[f"flash_{kind}_mma{sfx}"] == 0 for kind in
+               ("fwd", "dq", "dkv") for sfx in ("", "_bias"))
 
 
 def test_fp32_case_with_rows_off_16_bytes_is_checked():
