@@ -68,13 +68,38 @@ Phases, each fatal on failure:
    mixed-length prompts from client threads, 32 greedy tokens each.
    Llama-2 7B (prompts 17-300, max_context 512; every RMSNorm through its
    kernel) and GPT-2 small (prompts 17-900, max_context 1024; every
-   LayerNorm through its kernel). Launch counts are exact per model step,
-   and two requests of each are replayed through ``decode_step`` with a
-   contiguous cache, teacher-forced along the server's tokens, as the
-   oracle of every token.
-5. profile (only with ``--profile``): a second Llama round whose batch-8
-   decode steps run under ``torch.profiler``: device time by kernel
-   class and the device's idle share, written to ``--out``.
+   LayerNorm through its kernel). ``warmup()`` first captures every step
+   signature as a CUDA graph (count and seconds logged); the counted run
+   must capture nothing more. Launch counts are exact per model step (a
+   replay counts what its capture recorded), one replayed batch-8 decode
+   step under ``torch.profiler`` must show the norm kernel once per norm
+   in CUPTI's records, two requests of each are replayed through
+   ``decode_step`` with a contiguous cache, teacher-forced along the
+   server's tokens, as the oracle of every token, and every step the
+   server ran, run again eagerly through the step layer on pools of its
+   own, must give the graph's tokens.
+5. profile (only with ``--profile``): a second round of each serve cell
+   (warmed up first) whose batch-8 decode steps run under
+   ``torch.profiler``: device time by kernel class and the device's idle
+   share, written to ``--out``; likewise one step of each train cell and
+   of both loop cells (9b, 9c).
+Train cells (6b, 7b, 8b, 9c) run ``create_train_step`` /
+``create_multistep_train_step`` captured: one CUDA graph per signature,
+the first call eager on the capture stream. From one snapshot of the
+parameters and the model's generators, 3 steps of the smoke's own eager
+loop (``zero_grad``, loss, ``backward``, ``apply_gradients``) and 3
+captured steps on a fresh optimizer must give the same losses and
+parameters bit for bit (BERT's dropout included); then 20 timed
+replays (counted: exact launches, one capture in all), and one more
+replay under ``torch.profiler`` whose CUPTI records must show each of the
+step's kernels the expected number of times. The loss must fall by 0.5
+over the first 20 steps from the initialisation. The first call
+(eager step + capture) is reported apart from the timed steps (9c: each
+twin's, before the turns), and the memory the allocator holds after
+them (the graph pool included); the peak allocated memory by stage: what
+the earlier cells left, the 3 eager steps' peak, and the first call's
+warm-up, its capture and the captured steps.
+
 6. train: ``create_train_step`` trains ``GPTForCausalLM``.
    a. oracle: GPT-2 small's widths with 2 layers, fp32, one step of
       batch 1 x 1024 on the card (kernels) and on the CPU (plain
@@ -83,6 +108,10 @@ Phases, each fatal on failure:
       gradient within 1e-3 of its largest magnitude (the key
       projection's bias, whose gradient is zero in exact arithmetic,
       within 1e-6 of the model's largest gradient magnitude).
+      Then recompute under capture: 2 layers at GPT-2 small's widths,
+      bf16, dropout 0.1, every layer recomputed ("full", then
+      "dots_saveable"): 3 captured steps equal to 3 eager ones from one
+      snapshot, bit for bit.
    b. full: bench.py's GPT-2 small config (12 layers, vocab 50304, seq
       1024, batch 8, dropout 0, bf16 parameters, fp32 AdamW moments,
       AdamW(3e-4, weight decay 0.01)), 20 steps on one batch: the loss
@@ -130,7 +159,9 @@ Phases, each fatal on failure:
       "full" and "dots_saveable": equal to the run without recompute bit
       for bit (a tensor that already differs between two runs without
       recompute is named and held to that difference), with 4 flash
-      forwards and 9 RMSNorms (every layer replayed).
+      forwards and 9 RMSNorms (every layer replayed). Then that model in
+      bf16 with recompute under both policies: 3 captured steps equal
+      to 3 eager ones from one snapshot, bit for bit.
    b. full (cell ``llama-0.7b-bf16-train-b8``): bench_configs.py's
       single-chip Llama config (12 layers, 2048 wide, 16 heads, 5504,
       vocab 32000, sequence 2048, dropout 0, blockwise CE), batch 8, no
@@ -182,7 +213,9 @@ Phases, each fatal on failure:
       AdamW(3e-4, weight decay 0.01 off biases and norms):
       ``create_multistep_train_step(steps=4)`` must equal 4
       ``create_train_step`` calls on a twin bit for bit (losses and
-      parameters, batch 8 x 1024); then 20 optimizer steps as 5
+      parameters, batch 8 x 1024); 3 captured ``steps=4, accumulate=2``
+      dispatches must equal the smoke's own eager loop from one
+      snapshot; then 20 optimizer steps as 5
       dispatches of ``steps=4, accumulate=2`` (microbatch 4 x 1024; each
       step the same 8 sequences in a new order), fed by
       ``prefetch_to_device(host numpy batches, stack=4, depth=2)`` with
@@ -192,7 +225,8 @@ Phases, each fatal on failure:
       wgmma flash, 50 LayerNorm and 2/2 CE kernels. Four turns in all
       (run_steps, synchronous, run_steps, synchronous), each compared,
       each timed: ms/step and ``pipeline_stats`` (host-blocked vs
-      device-blocked seconds).
+      device-blocked seconds); one capture for each twin, and a profiled
+      replayed dispatch.
 
 ``--optimizer-ab`` adds GPT-2's and BERT's train cells with the flag
 ``use_fused_optimizer`` on and off in turns (ms/step, the profiled
@@ -1337,10 +1371,13 @@ def _serve_model(cell, seed, device="cuda"):
 
 
 def phase_serve(cell, seed, card, device="cuda"):
-    """Serve the cell's prompts through DecodeServer; check the exact
-    launch counts (2 x layers + 1 norms per model step, prefill or
-    decode, and no other kernel) and the teacher-forced contiguous-cache
-    oracle. Returns (model, prompts, results, launches of the run)."""
+    """Serve the cell's prompts through DecodeServer after ``warmup()``
+    has captured every step signature; check that the counted run
+    captures nothing, the exact launch counts (2 x layers + 1 norms per
+    model step, prefill or decode, and no other kernel), a profiled
+    replay's kernels, the teacher-forced contiguous-cache oracle, and
+    that every step's tokens equal the same steps run eagerly. Returns
+    (model, prompts, results, launches of the run)."""
     from paddle_tpu_torch.serving.decode import DecodeServer
     _, _, norm, prompt_lens, max_context = SERVE_CELLS[cell]
     torch.cuda.reset_peak_memory_stats()
@@ -1364,7 +1401,22 @@ def phase_serve(cell, seed, card, device="cuda"):
                for n in prompt_lens]
     srv = DecodeServer(model, max_slots=8, page_len=16,
                        max_context=max_context, device=device)
+    recorded = []               # (host arrays, sampled tokens) per step
     try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_warm = srv.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        log(f"  warmup: {n_warm} step signatures captured in {warm_s:.2f} s "
+            f"({srv.bucket_config()})")
+        real_run = srv._exec.run
+
+        def run(host_arrays, pools):
+            out = real_run(host_arrays, pools)
+            recorded.append(([a.copy() for a in host_arrays], out[0]))
+            return out
+        srv._exec.run = run
         streams = [None] * len(prompts)
 
         def client(i):
@@ -1383,8 +1435,41 @@ def phase_serve(cell, seed, card, device="cuda"):
         launches = _counts()                        # counted run ends
         st = srv.stats()
         n_exec = srv.num_executables()
+        captures = srv._sf.compile_count
+        arrays = next(a for a, _ in recorded if a[0].shape == (8, 1))
+        profiled = _hold_profiled(
+            f"{cell} batch-8 decode step",
+            lambda: real_run(arrays, srv._pools),
+            {norm: norms_per_call})
     finally:
         srv.shutdown()
+        srv._exec.__dict__.pop("run", None)     # no cycle through the spy
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    if not (st["compile_count"] == n_exec == captures == n_warm):
+        raise AssertionError(
+            f"warmup captured {n_warm}; after the run compile_count "
+            f"{st['compile_count']}, executables {n_exec}, captures "
+            f"{captures}: the counted run captured")
+    # the same steps eagerly: the step layer itself on pools of its own
+    layer = srv._sf._layer
+    pools = [torch.zeros_like(t) for t in srv._pools]
+    del srv, real_run, run          # the server's pools and graphs
+    torch.cuda.empty_cache()
+    diff = []
+    with torch.inference_mode():
+        for i, (host, toks) in enumerate(recorded):
+            out = layer(*[torch.from_numpy(a).to(device) for a in host],
+                        *pools)
+            if not torch.equal(out[0], toks):
+                diff.append(i)
+    del pools
+    if diff:
+        raise AssertionError(f"steps {diff[:8]} of {len(recorded)}: the "
+                             f"replayed graph's tokens differ from the "
+                             f"eager step's")
+    log(f"  eager: the {len(recorded)} steps run eagerly give the replayed "
+        f"graphs' tokens, every one")
     for i, o in enumerate(outs):
         if len(o) != NEW_TOKENS:
             raise AssertionError(f"request {i} gave {len(o)} tokens, "
@@ -1428,7 +1513,6 @@ def phase_serve(cell, seed, card, device="cuda"):
                     f"{int(row.argmax())}, gap {gap:.3e}")
         log(f"  oracle agrees on request {i} (prompt {len(p)}): "
             f"{len(toks)} tokens")
-    peak = torch.cuda.max_memory_allocated()
     total_tokens = sum(len(o) for o in outs)
     res = {
         "tokens_per_s": total_tokens / t_total,
@@ -1443,7 +1527,11 @@ def phase_serve(cell, seed, card, device="cuda"):
         "prefills": st["prefills"], "decode_steps": st["decode_steps"],
         "launches": launches,
         "num_executables": n_exec,
+        "warmup_captures": n_warm, "warmup_s": warm_s,
+        "steps_equal_eager": len(recorded),
+        "profiled": profiled,
         "peak_mem_bytes": peak,
+        "peak_reserved_bytes": reserved,
         "oracle_worst_gap": worst_gap,
         "card": card,
     }
@@ -1482,6 +1570,7 @@ def phase_profile(cell, model, prompts, out_dir, device="cuda"):
     from paddle_tpu_torch.serving.decode import DecodeServer
     srv = DecodeServer(model, max_slots=8, page_len=16,
                        max_context=SERVE_CELLS[cell][4], device=device)
+    srv.warmup()                        # no capture inside the window
     # warmup=1: the profiler starts (and its set-up cost lands) while
     # the prefills run; prof.step() opens the recorded window once every
     # prompt has its first token, so it holds batch-8 decode steps only
@@ -1547,31 +1636,16 @@ BERT_MASK_ID = 103                      # [MASK] in BERT's vocabulary
 LLAMA_CELL = "llama-0.7b-bf16-train-b8"
 
 
-def _wrappers():
-    """Every kernel wrapper, by the name the kernels line gives it."""
-    from paddle_tpu_torch.ops.kernels import cross_entropy as ce
-    from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    from paddle_tpu_torch.ops.kernels import norms
-    out = {"rms_norm": norms.rms_norm, "layer_norm": norms.layer_norm,
-           "softmax_xent_fwd": ce.softmax_xent_fwd,
-           "softmax_xent_bwd": ce.softmax_xent_bwd}
-    for kind in ("fwd", "dq", "dkv"):
-        w = getattr(fa, "flash_" + kind)
-        out.update({f"flash_{kind}": w, f"flash_{kind}_wgmma": w.wgmma,
-                    f"flash_{kind}_bias": w.bias,
-                    f"flash_{kind}_wgmma_bias": w.wgmma_bias,
-                    f"flash_{kind}_wgmma_keybias": w.wgmma_keybias,
-                    f"flash_{kind}_mma": w.mma,
-                    f"flash_{kind}_mma_bias": w.mma_bias})
-    return out
-
-
 def _counts() -> dict:
-    return {k: w.launches for k, w in _wrappers().items()}
+    """Every kernel's launch count, by the name the kernels line gives it
+    (a captured step's launches count at every replay)."""
+    from paddle_tpu_torch.ops.kernels import launch_counters
+    return {k: w.launches for k, w in launch_counters().items()}
 
 
 def _reset_counts():
-    for w in _wrappers().values():
+    from paddle_tpu_torch.ops.kernels import launch_counters
+    for w in launch_counters().values():
         w.launches = 0
 
 
@@ -1591,7 +1665,7 @@ def _expected_counts(layers: int, steps: int, route: str,
     fwds = layers if fwds is None else fwds
     sfx = _sfx(route) + (("_keybias" if route == "wgmma" else "_bias")
                          if bias else "")
-    out = dict.fromkeys(_wrappers(), 0)
+    out = dict.fromkeys(_counts(), 0)
     out.update({f"flash_fwd{sfx}": fwds * steps,
                 f"flash_dq{sfx}": layers * steps,
                 f"flash_dkv{sfx}": layers * steps,
@@ -1690,6 +1764,9 @@ def _train_kernel_class(name: str) -> str:
                      ("layer_norm_fwd_kernel", "layer_norm kernel"),
                      ("rms_norm_fwd_kernel", "rms_norm kernel"),
                      ("rms_norm_small_kernel", "rms_norm kernel"),
+                     ("fwd_mma_kernel", "flash fwd mma kernel"),
+                     ("dq_mma_kernel", "flash dq mma kernel"),
+                     ("dkv_mma_kernel", "flash dkv mma kernel"),
                      ("fwd_kernel<", "flash fwd kernel"),
                      ("dq_kernel", "flash dq kernel"),
                      ("dkv_kernel", "flash dkv kernel")):
@@ -1707,8 +1784,298 @@ def _train_kernel_class(name: str) -> str:
     return "elementwise/copy"
 
 
+def _counter_class(name: str) -> str:
+    """The kernel class (``_train_kernel_class``) whose launches the
+    counter ``name`` counts."""
+    fixed = {"rms_norm": "rms_norm kernel",
+             "layer_norm": "layer_norm kernel",
+             "softmax_xent_fwd": "CE fwd kernel",
+             "softmax_xent_bwd": "CE bwd kernel"}
+    if name in fixed:
+        return fixed[name]
+    kind = name.split("_")[1]
+    route = ("wgmma " if "_wgmma" in name else
+             "mma " if "_mma" in name else "")
+    return f"flash {kind} {route}kernel"
+
+
+PROFILE_TRIES = 3
+
+
+def _hold_profiled(what, fn, expect) -> dict:
+    """One call of ``fn`` (a replayed step) under ``torch.profiler``:
+    CUPTI's kernel records, classed by ``_train_kernel_class``, must show
+    each kernel of ``expect`` (the launch counts of one call) exactly as
+    often, and no other of the port's kernels: the proof that the
+    kernels run inside the replayed graph. CUPTI now and then drops a
+    record (one Llama replay of five, whose graph never changes, showed
+    3072 of its 3075 records and 24 of its 25 RMSNorms), so a replay that
+    shows fewer is profiled again, up to ``PROFILE_TRIES`` calls in all;
+    one that shows more, or another of the port's kernels, fails at
+    once. Returns the counts by class and the calls it took."""
+    from torch.profiler import ProfilerActivity, profile
+    want = {}
+    for k, n in expect.items():
+        if n:
+            want[_counter_class(k)] = want.get(_counter_class(k), 0) + n
+    ours = {_counter_class(k) for k in _counts()}
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = {}
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                c = _train_kernel_class(e.key)
+                seen[c] = seen.get(c, 0) + e.count
+        got = {c: seen.get(c, 0) for c in sorted(ours) if c in want
+               or seen.get(c)}
+        log(f"  profiled replay ({what}, call {attempt}): {got} (expected "
+            f"{want}); {sum(seen.values())} kernel records in all")
+        if got == want:
+            return {"kernels": got, "classes": seen, "calls": attempt}
+        if set(got) != set(want) or any(got[c] > want[c] for c in got):
+            break
+    raise AssertionError(f"{what}: the profiled replay shows {got}, "
+                         f"expected {want}: the kernels did not run "
+                         f"inside the graph as counted")
+
+
+def _loss_call(model, loss_fn):
+    if loss_fn is None:
+        return lambda ids, labels: model.loss(ids, labels)
+    return lambda ids, labels: loss_fn(model, ids, labels)
+
+
+def _eager_step(model, opt, loss_fn, x, y, lr, accumulate=None):
+    """The smoke's own eager step, as ``create_train_step`` (``accumulate
+    None``) or ``create_multistep_train_step`` (x, y stacked ``[K, M, B,
+    S]`` for ``accumulate`` M > 1, else ``[K, B, S]``) computes it: the
+    trainer's weight-decay mask, fp32 gradient sums over microbatches."""
+    call = _loss_call(model, loss_fn)
+    mask = {id(p): _decays(n) for n, p in model.named_parameters()}
+
+    def one(xi, yi):
+        opt.zero_grad(set_to_none=True)
+        loss = call(xi, yi)
+        loss.backward()
+        opt.apply_gradients(lr, wd_mask=mask)
+        return loss.detach()
+
+    if accumulate is None:
+        return one(x, y)
+    losses = []
+    for i in range(x.shape[0]):
+        if accumulate == 1:
+            losses.append(one(x[i], y[i]))
+            continue
+        params = list(model.parameters())
+        gsum = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        lsum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j in range(accumulate):
+            opt.zero_grad(set_to_none=True)
+            loss = call(x[i, j], y[i, j])
+            loss.backward()
+            with torch.no_grad():
+                for s_, p in zip(gsum, params):
+                    s_.add_(p.grad.float())
+                lsum = lsum + loss.detach().float()
+        opt.zero_grad(set_to_none=True)
+        with torch.no_grad():
+            grads = {id(p): s_.div_(accumulate)
+                     for s_, p in zip(gsum, params)}
+        opt.apply_gradients(lr, wd_mask=mask, grads=grads)
+        losses.append(lsum / accumulate)
+    return torch.stack(losses)
+
+
+def _cell_start() -> int:
+    """Reset the allocator's peak at a train cell's start; return and log
+    what is allocated then (what the earlier cells left), by stream (the
+    default stream, the capture stream of ``paddle_tpu_torch.jit``, or
+    another), memory pool and block size."""
+    from paddle_tpu_torch import jit
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    names = {torch.cuda.current_stream().cuda_stream: "default", 0: "default"}
+    names.update({s.cuda_stream: "capture" for s in jit._streams.values()})
+    held = {}
+    for seg in torch.cuda.memory_snapshot():
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                stream = seg.get("stream", -1)
+                key = (names.get(stream, hex(stream)),
+                       tuple(seg.get("segment_pool_id") or ()), b["size"])
+                held[key] = held.get(key, 0) + 1
+    top = sorted(held.items(), key=lambda kv: -kv[0][2] * kv[1])[:8]
+    log(f"  allocated at the cell's start: {at_start / 2**30:.3f} GiB; "
+        f"largest by (stream, pool, block MiB) x count: "
+        + ", ".join(f"({k[0]}, {k[1]}, {k[2] / 2**20:.1f}) x {n}"
+                    for k, n in top))
+    return at_start
+
+
+def _noting_peaks(graphs, marks: dict):
+    """Wrap the warm-up and the capture of ``graphs`` (a step's
+    ``jit.Graphs``) so that each, when it ends, notes in ``marks`` the
+    allocator's peak so far and what is allocated."""
+    for name in ("warm_up", "capture"):
+        def noted(*a, _fn=getattr(graphs, name), _name=name, **k):
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            marks[_name] = (torch.cuda.max_memory_allocated(),
+                            torch.cuda.memory_allocated())
+            return out
+        setattr(graphs, name, noted)
+
+
+def _hold_captured_equals_eager(what, model, make_opt, make_step, batches,
+                                lr, loss_fn=None, accumulate=None):
+    """Snapshot the parameters (in host memory) and the model's
+    generators; run ``batches`` through the smoke's own eager loop
+    (``_eager_step``); restore the snapshot; run them through
+    ``make_step(model, opt)`` on a fresh optimizer, captured (the first
+    call runs eagerly on the capture stream and is captured, the others
+    replay). Losses and every parameter must be equal to the last bit.
+    Returns (optimizer, step, the captured losses, the first call's
+    seconds, memory): the allocator's peak over the eager steps and, from
+    a reset after them, over the first call's warm-up, its capture, and
+    the captured steps, with what is allocated after each, and the bytes
+    of one set of gradients."""
+    from paddle_tpu_torch.jit import _module_generators
+    gens = _module_generators(model)
+    params = list(model.parameters())
+    snap = [p.detach().to("cpu", copy=True) for p in params]
+    states = [g.get_state() for g in gens]
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_opt(model)
+    eager = [_eager_step(model, opt, loss_fn, x, y, lr, accumulate)
+             for x, y in batches]
+    torch.cuda.synchronize()
+    mem = {"eager_peak": torch.cuda.max_memory_allocated(),
+           "grads": sum(p.numel() * p.element_size() for p in params)}
+    eager_params = [p.detach().to("cpu", copy=True) for p in params]
+    del opt
+    with torch.no_grad():
+        for p, v in zip(params, snap):
+            p.copy_(v)
+    for g, st in zip(gens, states):
+        g.set_state(st)
+    del snap
+    model.zero_grad(set_to_none=True)
+    # the cell's peak memory is the captured run's: from here on
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_opt(model)
+    step = make_step(model, opt)
+    marks = {}
+    _noting_peaks(step._graphs, marks)
+    torch.cuda.synchronize()
+    mem["before"] = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    got = [step(*batches[0], lr)]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got += [step(x, y, lr) for x, y in batches[1:]]
+    torch.cuda.synchronize()
+    for name in ("warm_up", "capture"):
+        mem[f"{name}_peak"], mem[f"after_{name}"] = marks[name]
+        delattr(step._graphs, name)
+    mem["steps_peak"] = torch.cuda.max_memory_allocated()
+    mem["after_steps"] = torch.cuda.memory_allocated()
+    bad = [i for i, (a, b) in enumerate(zip(got, eager))
+           if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(
+            f"{what}: captured losses {[v.tolist() for v in got]} differ "
+            f"from the eager steps' {[v.tolist() for v in eager]}")
+    names = [n for n, _ in model.named_parameters()]
+    unequal = [(n, int((p != q).sum()), float((p.float() - q.float())
+                                              .abs().max()))
+               for n, p, q in ((n, p.detach().cpu(), q) for n, p, q in
+                               zip(names, params, eager_params))
+               if not torch.equal(p, q)]
+    if unequal:
+        raise AssertionError(f"{what}: after {len(batches)} captured steps "
+                             f"these parameters differ from the eager "
+                             f"steps' (name, entries, max diff): "
+                             f"{unequal[:8]}")
+    log(f"  captured = eager: {len(batches)} steps from one snapshot "
+        f"(the model's {len(gens)} generators restored), losses "
+        f"{[v.tolist() for v in got]} and {len(params)} parameters equal "
+        f"to the last bit; first call (eager step + capture) "
+        f"{first_s:.2f} s")
+    log("  memory (GiB): " + ", ".join(
+        f"{k} {v / 2**30:.3f}" for k, v in mem.items()))
+    return opt, step, got, first_s, mem
+
+
+def _timed_replays(step, x, y, lr, n=TRAIN_STEPS):
+    """``n`` calls of a captured step, counted and timed: returns (losses,
+    ms per step, launches, the bytes the allocator holds after them: live
+    tensors, the graph pool and its cache)."""
+    _reset_counts()                                  # counted run starts
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        losses.append(step(x, y, lr))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    counts = _counts()                               # counted run ends
+    return losses, ms, counts, torch.cuda.memory_reserved()
+
+
+def _hold_recompute_captured(what, make_model, x, y):
+    """For each recompute policy, ``make_model(policy)`` (every layer
+    recomputed, bf16): 3 captured steps equal to 3 eager ones from one
+    snapshot (under capture the replay reads the forward's draws back;
+    eagerly it restores the generators and draws again)."""
+    from paddle_tpu_torch.models import create_train_step, write_back
+    from paddle_tpu_torch.optimizer import AdamW
+    res = {}
+    for policy in ("full", "dots_saveable"):
+        model = make_model(policy)
+        write_back(model, {k: v.detach().to(torch.bfloat16)
+                           for k, v in model.named_parameters()})
+        log(f"  {what}, recompute {policy}, captured against eager:")
+        _, step, losses, first_s, _ = _hold_captured_equals_eager(
+            f"{what} recompute {policy}", model,
+            lambda m: AdamW(TRAIN_LR, parameters=m.parameters(),
+                            weight_decay=0.01),
+            create_train_step, [(x, y)] * 3, TRAIN_LR)
+        res[policy] = {"losses": [float(v) for v in losses],
+                       "first_call_s": first_s,
+                       "captures": step.compile_count}
+        del model, step
+    return res
+
+
+def phase_train_recompute(seed):
+    """GPT-2 small's widths with 2 layers, bf16, dropout 0.1, every layer
+    recomputed: ``_hold_recompute_captured``."""
+    from paddle_tpu_torch.core.random import make_generator
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt2_small
+    cfg = gpt2_small()
+    cfg.num_layers, cfg.dropout, cfg.use_recompute = 2, 0.1, True
+    batch, seq = 8, cfg.max_position_embeddings
+    rng = np.random.RandomState(seed + 5)
+    ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq + 1)),
+                          device="cuda")
+
+    def gpt(policy):
+        cfg.recompute_policy = policy
+        return GPTForCausalLM(cfg, device="cuda",
+                              generator=make_generator(seed, "cuda"))
+    return _hold_recompute_captured("GPT-2, dropout 0.1, 2 layers", gpt,
+                                    ids[:, :-1], ids[:, 1:])
+
+
 def phase_train_full(seed, card, profile, out_dir):
-    """bench.py's GPT-2 small training config, 20 steps on one batch."""
+    """bench.py's GPT-2 small training config on one batch: 3 captured
+    steps equal to 3 eager ones from one snapshot, then 20 timed
+    replays."""
     from paddle_tpu_torch.core.random import make_generator
     from paddle_tpu_torch.models import (GPTForCausalLM, create_train_step,
                                          gpt2_small, write_back)
@@ -1716,61 +2083,71 @@ def phase_train_full(seed, card, profile, out_dir):
     cfg = gpt2_small()
     cfg.dropout = 0.0
     batch, seq = 8, cfg.max_position_embeddings
-    torch.cuda.reset_peak_memory_stats()
+    at_start = _cell_start()
     model = GPTForCausalLM(cfg, device="cuda",
                            generator=make_generator(seed, "cuda"))
     # bf16 parameters, fp32 moments (bench.py casts its params the same way)
     write_back(model, {k: v.detach().to(torch.bfloat16)
                        for k, v in model.named_parameters()})
     nparams = sum(p.numel() for p in model.parameters())
-    opt = AdamW(TRAIN_LR, parameters=model.parameters(), weight_decay=0.01)
-    step = create_train_step(model, opt)
     rng = np.random.RandomState(seed)
     ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq + 1)),
                           device="cuda")
     x, y = ids[:, :-1], ids[:, 1:]
-    _reset_counts()                                  # counted run starts
-    losses = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(TRAIN_STEPS):
-        losses.append(step(x, y, TRAIN_LR))
-        if i == 0:
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    counts = _counts()                               # counted run ends
-    losses = [float(v) for v in losses]
+    _, step, first, first_s, mem = _hold_captured_equals_eager(
+        "train", model,
+        lambda m: AdamW(TRAIN_LR, parameters=m.parameters(),
+                        weight_decay=0.01),
+        create_train_step, [(x, y)] * 3, TRAIN_LR)
+    timed, ms_step, counts, reserved = _timed_replays(step, x, y, TRAIN_LR)
+    losses = [float(v) for v in first + timed]
     peak = torch.cuda.max_memory_allocated()
-    ms_step = (t2 - t1) / (TRAIN_STEPS - 1) * 1e3
     tokens_s = batch * seq / (ms_step / 1e3)
     h, L, inter, V = (cfg.hidden_size, cfg.num_layers,
                       cfg.intermediate_size, cfg.vocab_size)
     flops_per_tok = 6 * (L * (4 * h * h + 2 * h * inter) + V * h) \
         + 3 * L * seq * h                            # bench.py's count
     res = {"params": nparams, "batch": batch, "seq": seq,
-           "losses": losses, "first_step_s": t1 - t0, "ms_per_step": ms_step,
-           "tokens_per_s": tokens_s,
+           "losses": losses, "first_call_s": first_s,
+           "ms_per_step": ms_step, "tokens_per_s": tokens_s,
            "mfu": tokens_s * flops_per_tok / BF16_FLOPS,
-           "peak_mem_bytes": peak, "launches": counts, "card": card}
+           "peak_mem_bytes": peak, "reserved_bytes": reserved,
+           "mem_at_start_bytes": at_start, "memory_stages": mem,
+           "captures": step.compile_count, "launches": counts,
+           "card": card}
     log(f"  full: {nparams} params bf16, batch {batch} x {seq}, loss "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f} over {TRAIN_STEPS} steps")
-    log(f"  full: {ms_step:.2f} ms/step, {tokens_s:.0f} tokens/s, MFU "
-        f"{res['mfu']:.4f} (vs 989 TFLOP/s), peak memory "
-        f"{peak / 2**30:.2f} GiB, first step {t1 - t0:.2f} s [{card}]")
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps "
+        f"(3 against eager, {TRAIN_STEPS} timed)")
+    log(f"  full: {ms_step:.2f} ms/step (replays), {tokens_s:.0f} tokens/s, "
+        f"MFU {res['mfu']:.4f} (vs 989 TFLOP/s), peak memory "
+        f"{peak / 2**30:.2f} GiB allocated, {reserved / 2**30:.2f} GiB "
+        f"reserved (graph pool included), first call (eager step + capture) "
+        f"{first_s:.2f} s [{card}]")
     log(f"  full: launches {counts}")
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if not losses[0] - losses[-1] >= 0.5:
-        raise AssertionError(f"loss fell by {losses[0] - losses[-1]:.4f} "
-                             f"< 0.5 over {TRAIN_STEPS} steps")
-    expect = _expected_counts(L, TRAIN_STEPS, "wgmma")
-    if counts != expect:
-        raise AssertionError(f"launches {counts}, expected {expect}")
+    _hold_training(losses, counts, _expected_counts(L, TRAIN_STEPS, "wgmma"),
+                   step)
+    res["profiled"] = _hold_profiled("train", lambda: step(x, y, TRAIN_LR),
+                                     _expected_counts(L, 1, "wgmma"))
     if profile:
         res["profile"] = phase_train_profile(step, x, y, out_dir)
     return res
+
+
+def _hold_training(losses, counts, expect, step):
+    """The checks of a captured train cell: finite losses that fall by at
+    least 0.5 over the first ``TRAIN_STEPS`` steps from the
+    initialisation, the exact launches of the timed replays, and one
+    capture in all."""
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    fall = losses[0] - losses[TRAIN_STEPS - 1]
+    if not fall >= 0.5:
+        raise AssertionError(f"loss fell by {fall:.4f} < 0.5 over "
+                             f"{TRAIN_STEPS} steps")
+    if counts != expect:
+        raise AssertionError(f"launches {counts}, expected {expect}")
+    if step.compile_count != 1:
+        raise AssertionError(f"{step.compile_count} captures, expected 1")
 
 
 def phase_train_profile(step, x, y, out_dir, lr=TRAIN_LR,
@@ -1940,8 +2317,10 @@ def phase_bert_oracle(seed):
 
 
 def phase_bert_full(seed, card, profile, out_dir):
-    """BERT-large pretraining (MLM + NSP) at full width and depth, 20
-    steps on one batch of 16 x 512."""
+    """BERT-large pretraining (MLM + NSP) at full width and depth on one
+    batch of 16 x 512: 3 captured steps equal to 3 eager ones from one
+    snapshot (dropout 0.1 drawn from the model's generator, registered
+    with the graph), then 20 timed replays."""
     from paddle_tpu_torch.core.random import make_generator
     from paddle_tpu_torch.models import (BertForPretraining, bert_large,
                                          create_train_step, write_back)
@@ -1949,35 +2328,29 @@ def phase_bert_full(seed, card, profile, out_dir):
     from paddle_tpu_torch.optimizer import AdamW
     cfg = bert_large()                               # dropout 0.1
     batch, seq = 16, cfg.max_position_embeddings
-    torch.cuda.reset_peak_memory_stats()
+    at_start = _cell_start()
     model = BertForPretraining(cfg, device="cuda",
                                generator=make_generator(seed, "cuda"))
     # bf16 parameters, fp32 moments, as the GPT-2 train cell
     write_back(model, {k: v.detach().to(torch.bfloat16)
                        for k, v in model.named_parameters()})
     nparams = sum(p.numel() for p in model.parameters())
-    opt = AdamW(BERT_LR, parameters=model.parameters(), weight_decay=0.01)
     rng = np.random.RandomState(seed)
     lens = rng.randint(128, seq + 1, batch)
     ids, labels, tt, mask, nsp = _bert_batch(cfg.vocab_size, lens, seq, rng,
                                              "cuda")
-    step = create_train_step(model, opt, _bert_loss_fn(tt, mask, nsp))
-    _reset_counts()                                  # counted run starts
-    losses = []
+    loss_fn = _bert_loss_fn(tt, mask, nsp)
     with _DbiasSpy(fa) as spy:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(TRAIN_STEPS):
-            losses.append(step(ids, labels, BERT_LR))
-            if i == 0:
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-    counts = _counts()                               # counted run ends
-    losses = [float(v) for v in losses]
+        _, step, first, first_s, mem = _hold_captured_equals_eager(
+            "bert", model,
+            lambda m: AdamW(BERT_LR, parameters=m.parameters(),
+                            weight_decay=0.01),
+            lambda m, o: create_train_step(m, o, loss_fn),
+            [(ids, labels)] * 3, BERT_LR, loss_fn)
+        timed, ms_step, counts, reserved = _timed_replays(
+            step, ids, labels, BERT_LR)
+    losses = [float(v) for v in first + timed]
     peak = torch.cuda.max_memory_allocated()
-    ms_step = (t2 - t1) / (TRAIN_STEPS - 1) * 1e3
     tokens_s = batch * seq / (ms_step / 1e3)
     h, L, inter, V = (cfg.hidden_size, cfg.num_layers,
                       cfg.intermediate_size, cfg.vocab_size)
@@ -1989,34 +2362,34 @@ def phase_bert_full(seed, card, profile, out_dir):
     res = {"params": nparams, "batch": batch, "seq": seq,
            "valid_lengths": [int(n) for n in lens],
            "valid_share": float(lens.sum()) / (batch * seq),
-           "losses": losses, "first_step_s": t1 - t0,
+           "losses": losses, "first_call_s": first_s,
            "ms_per_step": ms_step, "tokens_per_s": tokens_s,
            "valid_tokens_per_s": tokens_s * float(lens.sum()) / (batch * seq),
            "mfu": tokens_s * flops_per_tok / BF16_FLOPS,
            "flops_per_token": flops_per_tok,
-           "peak_mem_bytes": peak, "launches": counts,
+           "peak_mem_bytes": peak, "reserved_bytes": reserved,
+           "mem_at_start_bytes": at_start, "memory_stages": mem,
+           "captures": step.compile_count, "launches": counts,
            "dbias_requests": {"dq": spy.dq_dbias, "broadcast": spy.broadcast},
            "card": card}
     log(f"  full: {nparams} params bf16, batch {batch} x {seq} (valid "
         f"share {res['valid_share']:.3f}), loss {losses[0]:.4f} -> "
-        f"{losses[-1]:.4f} over {TRAIN_STEPS} steps")
-    log(f"  full: {ms_step:.2f} ms/step, {tokens_s:.0f} tokens/s "
+        f"{losses[-1]:.4f} over {len(losses)} steps (3 against eager, "
+        f"{TRAIN_STEPS} timed)")
+    log(f"  full: {ms_step:.2f} ms/step (replays), {tokens_s:.0f} tokens/s "
         f"({res['valid_tokens_per_s']:.0f} valid), MFU {res['mfu']:.4f} "
-        f"(vs 989 TFLOP/s), peak memory {peak / 2**30:.2f} GiB, first step "
-        f"{t1 - t0:.2f} s [{card}]")
+        f"(vs 989 TFLOP/s), peak memory {peak / 2**30:.2f} GiB allocated, "
+        f"{reserved / 2**30:.2f} GiB reserved (graph pool included), first "
+        f"call (eager step + capture) {first_s:.2f} s [{card}]")
     log(f"  full: launches {counts}; dbias requested {res['dbias_requests']}")
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if not losses[0] - losses[-1] >= 0.5:
-        raise AssertionError(f"loss fell by {losses[0] - losses[-1]:.4f} "
-                             f"< 0.5 over {TRAIN_STEPS} steps")
-    expect = _expected_counts(L, TRAIN_STEPS, "wgmma", norms=2 * L + 2,
-                              ces=2, bias=True)
-    if counts != expect:
-        raise AssertionError(f"launches {counts}, expected {expect}")
+    _hold_training(losses, counts, _expected_counts(
+        L, TRAIN_STEPS, "wgmma", norms=2 * L + 2, ces=2, bias=True), step)
     if spy.dq_dbias or spy.broadcast:
         raise AssertionError(f"dbias computed for the mask: "
                              f"{res['dbias_requests']}")
+    res["profiled"] = _hold_profiled(
+        "bert", lambda: step(ids, labels, BERT_LR),
+        _expected_counts(L, 1, "wgmma", norms=2 * L + 2, ces=2, bias=True))
     if profile:
         res["profile"] = phase_train_profile(
             step, ids, labels, out_dir, BERT_LR, "bert_train_profile.txt")
@@ -2203,76 +2576,76 @@ def phase_llama_oracle(seed):
     del cpu, steps
     xg, yg = (torch.as_tensor(a, device="cuda") for a in (x, y))
     rec = _hold_recompute(gpu, xg, yg, cfg.num_layers)
+    del gpu
+
+    def llama(policy):
+        return LlamaForCausalLM(
+            _llama_cfg(num_layers=2, use_recompute=True,
+                       recompute_policy=policy),
+            device="cuda", generator=make_generator(seed, "cuda"))
+    rec["captured"] = _hold_recompute_captured("Llama, 2 layers", llama,
+                                               xg, yg)
     return {"loss_card": loss_gpu, "loss_cpu": loss_cpu,
             "worst_grad_rel": worst, "launches": counts, "recompute": rec}
 
 
 def phase_llama_full(seed, card, profile, out_dir):
     """The 0.7B Llama train cell: bench_configs.py's single-chip config
-    at batch 8 x 2048, bf16 parameters and AdamW moments, 20 steps on
-    one batch."""
+    at batch 8 x 2048, bf16 parameters and AdamW moments, on one batch:
+    3 captured steps equal to 3 eager ones from one snapshot, then 20
+    timed replays."""
     from paddle_tpu_torch.core.random import make_generator
     from paddle_tpu_torch.models import (LlamaForCausalLM, create_train_step,
                                          write_back)
     from paddle_tpu_torch.optimizer import AdamW
     cfg = _llama_cfg()
     batch, seq = 8, cfg.max_position_embeddings
-    torch.cuda.reset_peak_memory_stats()
+    at_start = _cell_start()
     model = LlamaForCausalLM(cfg, device="cuda",
                              generator=make_generator(seed, "cuda"))
     write_back(model, {k: v.detach().to(torch.bfloat16)
                        for k, v in model.named_parameters()})
     nparams = sum(p.numel() for p in model.parameters())
-    # the reference's second candidate (bench_configs.py): batch 8 with
-    # bf16 moment storage; weight decay off the norms (trainer._wd_mask)
-    opt = AdamW(TRAIN_LR, parameters=model.parameters(), weight_decay=0.01,
-                moment_dtype=torch.bfloat16)
-    step = create_train_step(model, opt)
     rng = np.random.RandomState(seed)
     ids = torch.as_tensor(rng.randint(0, cfg.vocab_size, (batch, seq + 1)),
                           device="cuda")
     x, y = ids[:, :-1], ids[:, 1:]
-    _reset_counts()                                  # counted run starts
-    losses = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(TRAIN_STEPS):
-        losses.append(step(x, y, TRAIN_LR))
-        if i == 0:
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    counts = _counts()                               # counted run ends
-    losses = [float(v) for v in losses]
+    # the reference's second candidate (bench_configs.py): batch 8 with
+    # bf16 moment storage; weight decay off the norms (trainer._wd_mask)
+    opt, step, first, first_s, mem = _hold_captured_equals_eager(
+        "llama", model,
+        lambda m: AdamW(TRAIN_LR, parameters=m.parameters(),
+                        weight_decay=0.01, moment_dtype=torch.bfloat16),
+        create_train_step, [(x, y)] * 3, TRAIN_LR)
+    timed, ms_step, counts, reserved = _timed_replays(step, x, y, TRAIN_LR)
+    losses = [float(v) for v in first + timed]
     peak = torch.cuda.max_memory_allocated()
-    ms_step = (t2 - t1) / (TRAIN_STEPS - 1) * 1e3
     tokens_s = batch * seq / (ms_step / 1e3)
     flops_per_tok = _mfu_llama_flops(cfg, seq)
     res = {"params": nparams, "batch": batch, "seq": seq,
-           "losses": losses, "first_step_s": t1 - t0, "ms_per_step": ms_step,
+           "losses": losses, "first_call_s": first_s,
+           "ms_per_step": ms_step,
            "tokens_per_s": tokens_s, "flops_per_token": flops_per_tok,
            "mfu": tokens_s * flops_per_tok / BF16_FLOPS,
            "moment_dtype": str(opt.state[model.lm_head.weight]["moment1"]
                                .dtype)[6:],
-           "peak_mem_bytes": peak, "launches": counts, "card": card}
+           "peak_mem_bytes": peak, "reserved_bytes": reserved,
+           "mem_at_start_bytes": at_start, "memory_stages": mem,
+           "captures": step.compile_count, "launches": counts, "card": card}
     log(f"  full: {nparams} params bf16, moments {res['moment_dtype']}, "
         f"batch {batch} x {seq}, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
-        f"over {TRAIN_STEPS} steps")
-    log(f"  full: {ms_step:.2f} ms/step, {tokens_s:.0f} tokens/s, MFU "
-        f"{res['mfu']:.4f} ({flops_per_tok / 1e9:.3f} GFLOP per token vs "
-        f"989 TFLOP/s), peak memory {peak / 2**30:.2f} GiB, first step "
-        f"{t1 - t0:.2f} s [{card}]")
+        f"over {len(losses)} steps (3 against eager, {TRAIN_STEPS} timed)")
+    log(f"  full: {ms_step:.2f} ms/step (replays), {tokens_s:.0f} tokens/s, "
+        f"MFU {res['mfu']:.4f} ({flops_per_tok / 1e9:.3f} GFLOP per token "
+        f"vs 989 TFLOP/s), peak memory {peak / 2**30:.2f} GiB allocated, "
+        f"{reserved / 2**30:.2f} GiB reserved (graph pool included), first "
+        f"call (eager step + capture) {first_s:.2f} s [{card}]")
     log(f"  full: launches {counts}")
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if not losses[0] - losses[-1] >= 0.5:
-        raise AssertionError(f"loss fell by {losses[0] - losses[-1]:.4f} "
-                             f"< 0.5 over {TRAIN_STEPS} steps")
-    expect = _expected_counts(cfg.num_layers, TRAIN_STEPS, "wgmma", ces=0,
-                              norm="rms_norm")
-    if counts != expect:
-        raise AssertionError(f"launches {counts}, expected {expect}")
+    _hold_training(losses, counts, _expected_counts(
+        cfg.num_layers, TRAIN_STEPS, "wgmma", ces=0, norm="rms_norm"), step)
+    res["profiled"] = _hold_profiled(
+        "llama", lambda: step(x, y, TRAIN_LR),
+        _expected_counts(cfg.num_layers, 1, "wgmma", ces=0, norm="rms_norm"))
     if profile:
         res["profile"] = phase_train_profile(step, x, y, out_dir,
                                              name="llama_train_profile.txt")
@@ -2511,7 +2884,8 @@ def phase_trainloop_oracle(seed, device="cuda"):
             "sgd_concat_losses": lc.tolist(), "launches": counts}
 
 
-def phase_trainloop_eager(seed, card, device="cuda"):
+def phase_trainloop_eager(seed, card, device="cuda", profile=False,
+                          out_dir=None):
     """The eager Paddle loop at full width: GPT-2 small in fp32, then
     ``amp.decorate(..., level="O2", dtype="bfloat16")`` (bf16 parameters,
     fp32 master weights), the warmup-cosine AdamW with
@@ -2530,8 +2904,10 @@ def phase_trainloop_eager(seed, card, device="cuda"):
                           device=device)
     x, y = ids[:, :-1], ids[:, 1:]
     expected_lrs = _schedule_values(TRAIN_STEPS)
+    at_start = 0
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
+        at_start = torch.cuda.memory_allocated()     # model and optimizer
     _reset_counts()                                  # counted run starts
     losses, lrs = [], []
     _sync(device)
@@ -2561,8 +2937,8 @@ def phase_trainloop_eager(seed, card, device="cuda"):
     log(f"  eager O2: global norm before clipping "
         f"{['%.4f' % v for v in before]}; after, at most {max(after):.6f}")
     log(f"  eager O2: {ms_step:.2f} ms/step, {tokens_s:.0f} tokens/s, peak "
-        f"memory {peak / 2**30:.2f} GiB, first step {t1 - t0:.2f} s "
-        f"[{card}]")
+        f"memory {peak / 2**30:.2f} GiB ({at_start / 2**30:.3f} allocated "
+        f"before the first step), first step {t1 - t0:.2f} s [{card}]")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[0] - losses[-1] >= 0.5:
@@ -2584,11 +2960,22 @@ def phase_trainloop_eager(seed, card, device="cuda"):
         raise AssertionError(f"launches {counts}, expected {expect}")
     log(f"  eager O2: every bf16 parameter equals its fp32 master rounded, "
         f"bit for bit; launches per step as the train cell's")
-    return {"batch": batch, "seq": seq, "losses": losses, "lrs": lrs,
-            "global_norm_before_clip": before,
-            "global_norm_after_clip": after, "ms_per_step": ms_step,
-            "tokens_per_s": tokens_s, "first_step_s": t1 - t0,
-            "peak_mem_bytes": peak, "launches": counts, "card": card}
+    res = {"batch": batch, "seq": seq, "losses": losses, "lrs": lrs,
+           "global_norm_before_clip": before,
+           "global_norm_after_clip": after, "ms_per_step": ms_step,
+           "tokens_per_s": tokens_s, "first_step_s": t1 - t0,
+           "peak_mem_bytes": peak, "mem_at_start_bytes": at_start,
+           "launches": counts, "card": card}
+    if profile:
+        def o2_step(x, y, lr):
+            loss = model.loss(x, y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            sched.step()
+        res["profile"] = phase_train_profile(o2_step, x, y, out_dir, None,
+                                             "o2_eager_profile.txt")
+    return res
 
 
 def phase_trainloop_clip_bf16(seed, card, device="cuda"):
@@ -2665,7 +3052,8 @@ def _loop_batches(rng, vocab, seq, steps, micro):
     return out
 
 
-def phase_trainloop_run_steps(seed, card, device="cuda"):
+def phase_trainloop_run_steps(seed, card, device="cuda", profile=False,
+                              out_dir=None):
     """``create_multistep_train_step`` and ``run_steps`` at full width,
     bf16 parameters, AdamW(3e-4, weight decay 0.01 off biases and
     norms): (1) ``steps=4`` against 4 ``create_train_step`` calls on a
@@ -2673,7 +3061,8 @@ def phase_trainloop_run_steps(seed, card, device="cuda"):
     ``steps=4, accumulate=2`` (microbatch 4 x 1024), fed by
     ``prefetch_to_device(..., stack=4, depth=2)`` with the warmup-cosine
     schedule as ``lr(i)``, against a synchronous loop on a twin over the
-    same batches, bit for bit; then both timed in turns."""
+    same batches, bit for bit; then both timed in turns, after each
+    twin's first call (its capture), which is timed apart."""
     from paddle_tpu_torch import profiler
     from paddle_tpu_torch.io import prefetch_to_device
     from paddle_tpu_torch.models import (create_multistep_train_step,
@@ -2707,6 +3096,22 @@ def phase_trainloop_run_steps(seed, card, device="cuda"):
     log(f"  multistep: steps={K} equals {K} create_train_step calls bit for "
         f"bit (losses {got.tolist()} and every parameter)")
     del one, four, step1
+
+    # (1b) the cell's dispatch (steps=K, accumulate=M) captured, against
+    # the smoke's own eager loop from one snapshot
+    _, (twin,) = _gpt2_twins(seed, 1, device=device, bf16=True)
+    drng = np.random.RandomState(seed + 3)
+    dispatches = []
+    for _ in range(3):
+        bs = _loop_batches(drng, cfg.vocab_size, seq, K, micro)
+        dispatches.append(tuple(torch.as_tensor(
+            np.stack([b[i] for b in bs]), device=device) for i in (0, 1)))
+    _hold_captured_equals_eager(
+        "run_steps cell", twin, adamw,
+        lambda m, o: create_multistep_train_step(m, o, steps=K,
+                                                 accumulate=M),
+        dispatches, TRAIN_LR, accumulate=M)
+    del twin, dispatches
     if device == "cuda":
         torch.cuda.empty_cache()
 
@@ -2722,7 +3127,21 @@ def phase_trainloop_run_steps(seed, card, device="cuda"):
                                            accumulate=M)
     step_sync = create_multistep_train_step(sync_m, adamw(sync_m), steps=K,
                                             accumulate=M)
-    res = {"turns": []}
+    # each twin's first call (an eager dispatch and its capture), timed
+    # apart and on a dispatch of its own, so that every turn replays
+    first_batch = tuple(torch.as_tensor(np.stack([b[i] for b in
+                                                  _loop_batches(
+        np.random.RandomState(seed + 4), cfg.vocab_size, seq, K, micro)]),
+        device=device) for i in (0, 1))
+    res = {"turns": [], "first_call_s": {}}
+    for kind, st in (("run_steps", step_run), ("sync", step_sync)):
+        _sync(device)
+        t0 = time.perf_counter()
+        st(*first_batch, lr(0))
+        _sync(device)
+        res["first_call_s"][kind] = time.perf_counter() - t0
+    log(f"  first calls (eager dispatch + capture), before the turns: "
+        f"{res['first_call_s']} s")
     for turn in range(4):
         batches = _loop_batches(rng, cfg.vocab_size, seq, TRAIN_STEPS,
                                 micro)
@@ -2782,11 +3201,23 @@ def phase_trainloop_run_steps(seed, card, device="cuda"):
     if counts != expect:
         raise AssertionError(f"run_steps launches {counts}, expected "
                              f"{expect}")
+    captures = {"run_steps": step_run.compile_count,
+                "sync": step_sync.compile_count}
+    if captures != {"run_steps": 1, "sync": 1}:
+        raise AssertionError(f"captures {captures}, expected one each")
     log(f"  run_steps: losses equal the synchronous loop's bit for bit in "
         f"every turn, parameters too; launches per step 24/24/24 wgmma "
-        f"flash, 50 LayerNorm, 2/2 CE")
+        f"flash, 50 LayerNorm, 2/2 CE; one capture each")
+    bx = np.stack([b[0] for b in batches[:K]])
+    by = np.stack([b[1] for b in batches[:K]])
+    res["profiled"] = _hold_profiled(
+        "run_steps dispatch", lambda: step_sync(bx, by, lr(0)),
+        _expected_counts(cfg.num_layers, M * K, "wgmma"))
+    if profile:
+        res["profile"] = phase_train_profile(
+            step_sync, bx, by, out_dir, lr(0), "run_steps_profile.txt")
     res.update({"microbatch": [micro, seq], "steps": K, "accumulate": M,
-                "launches": counts, "card": card})
+                "launches": counts, "captures": captures, "card": card})
     return res
 
 
@@ -3102,9 +3533,11 @@ def main(argv=None) -> int:
         log(f"train {cell}:")
         oracle = phase_train_oracle(args.seed)
         by_path["gpt2s-fp32-train-oracle"] = oracle["launches"]
+        recomputed = phase_train_recompute(args.seed)
         torch.cuda.empty_cache()
         res = phase_train_full(args.seed, card, args.profile, args.out)
         res["oracle"] = oracle
+        res["recompute_captured"] = recomputed
         report["train"] = {cell: res}
         by_path[cell] = res["launches"]
         torch.cuda.empty_cache()
@@ -3145,13 +3578,15 @@ def main(argv=None) -> int:
         res = {"oracle": phase_trainloop_oracle(args.seed)}
         by_path["gpt2s-fp32-trainloop-oracle"] = res["oracle"]["launches"]
         torch.cuda.empty_cache()
-        res[TRAINLOOP_EAGER_CELL] = phase_trainloop_eager(args.seed, card)
+        res[TRAINLOOP_EAGER_CELL] = phase_trainloop_eager(
+            args.seed, card, profile=args.profile, out_dir=args.out)
         by_path[TRAINLOOP_EAGER_CELL] = res[TRAINLOOP_EAGER_CELL]["launches"]
         torch.cuda.empty_cache()
         res["clip_bf16"] = phase_trainloop_clip_bf16(args.seed, card)
         by_path["gpt2s-bf16-O2-clip-2l"] = res["clip_bf16"]["launches"]
         torch.cuda.empty_cache()
-        res[TRAINLOOP_RUN_CELL] = phase_trainloop_run_steps(args.seed, card)
+        res[TRAINLOOP_RUN_CELL] = phase_trainloop_run_steps(
+            args.seed, card, profile=args.profile, out_dir=args.out)
         by_path[TRAINLOOP_RUN_CELL] = res[TRAINLOOP_RUN_CELL]["launches"]
         res["phase_seconds"] = time.perf_counter() - t0
         log(f"  phase trainloop: {res['phase_seconds']:.1f} s")

@@ -30,6 +30,15 @@ snapshots every generator the segment draws from before the forward
 (the ``_generator`` of each module in ``function`` and in the tensor
 arguments, and any given as ``generators=``), restores them for the
 replay, and puts back the states they had reached afterwards.
+
+Under a CUDA-graph capture (``jit``) those host-side state reads and
+writes cannot be recorded, so there the replay draws nothing instead:
+the output of every random op of the segment (``rand``, ``randint``,
+``bernoulli``, ... from any generator) is saved by the forward, and the
+replay reads it back. The replay then uses the draws the forward made,
+as it does eagerly, and the generators end where the forward left them.
+This keeps a dropout mask per dropout of the segment alive until the
+backward.
 """
 from __future__ import annotations
 
@@ -73,6 +82,19 @@ def _saving(ops: Optional[Sequence]):
 _SAC = {"dots_saveable": _saving(_DOTS),
         "dots_with_no_batch_dims_saveable": _saving(_DOTS_NO_BATCH),
         "everything_saveable": _saving(None)}
+
+
+def _keeping_draws(policy):
+    """``policy`` (None: replay everything), but every random op's output
+    saved, so that a replay draws nothing (the capture's form of
+    ``preserve_rng_state``)."""
+    def keep(ctx, op, *args, **kwargs):
+        if torch.Tag.nondeterministic_seeded in op.tags:
+            return CheckpointPolicy.MUST_SAVE
+        if policy is None:
+            return CheckpointPolicy.PREFER_RECOMPUTE
+        return policy(ctx, op, *args, **kwargs)
+    return keep
 
 
 def _resolve_policy(policy):
@@ -136,11 +158,21 @@ def recompute(function, *args, policy=None, preserve_rng_state: bool = True,
     the replay draws what the forward drew, from the default generators
     and from the explicit ones: the modules' own and ``generators``.
     ``use_reentrant`` is accepted and ignored (one behaviour, as in the
-    reference). Without grad mode the call just runs."""
+    reference). Without grad mode the call just runs. Under a CUDA-graph
+    capture the replay reads the forward's draws back instead of drawing
+    again (module docstring)."""
     del use_reentrant
     if not torch.is_grad_enabled():
         return function(*args, **kwargs)
     sac = _resolve_policy(policy)
+    if preserve_rng_state:
+        from ....jit import is_capturing
+        if is_capturing():
+            fwd, rec = create_selective_checkpoint_contexts(
+                _keeping_draws(sac))
+            return checkpoint(function, *args, use_reentrant=False,
+                              preserve_rng_state=False,
+                              context_fn=lambda: (fwd, rec), **kwargs)
     gens = []
     if preserve_rng_state:
         gens = _module_generators([function, *args])

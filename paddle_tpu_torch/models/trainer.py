@@ -2,14 +2,30 @@
 paddle_tpu/models/trainer.py).
 
 paddle_tpu stages forward, backward and the optimizer sweep into one
-jitted XLA program over functional parameter trees. PyTorch runs
-eagerly, so the port's steps work on the module in place: forward, the
-backward (the flash-attention backward kernels on the card) and
-``optimizer.apply_gradients``, which updates the parameters and moments
-in place, the counterpart of the reference's buffer donation. As in the
-reference, these steps take the learning rate as an argument and never
-clip: only the eager ``optimizer.step()`` reads a schedule and applies
+jitted XLA program over functional parameter trees. The port's steps
+work on the module in place: forward, the backward (the flash-attention
+backward kernels on the card) and ``optimizer.apply_gradients``, which
+updates the parameters and the optimizer's tensors in place, the
+counterpart of the reference's buffer donation. As in the reference,
+these steps take the learning rate as an argument and never clip: only
+the eager ``optimizer.step()`` reads a schedule and applies
 ``grad_clip``. The weight decay mask is the reference's ``_wd_mask``.
+
+On the card a step is the counterpart of the reference's one jitted
+program: one CUDA graph per (ids, labels) signature (``_CapturedStep``,
+over ``jit.Graphs``). A signature's first call runs eagerly on the
+capture stream, which sets up the libraries and the optimizer's state
+outside the capture, and is then captured (the first step's gradients
+wait in host memory meanwhile, so the card never holds them beside the
+graph's); every later call copies its
+batch into the graph's static inputs, fills the rate into a 0-d fp64
+buffer the graph reads, replays, and returns a clone of the loss, which
+a later replay cannot overwrite. A K-step call with ``accumulate=M`` is
+one graph. The model's generators that the first call drew from
+(dropout) are registered with the graph, each replay advances the
+optimizer's host-side step counts, and a rebinding of a parameter, a
+master weight or an optimizer tensor is captured again before the next
+replay. On the CPU every call runs eagerly.
 
 ``create_multistep_train_step`` runs K such steps per call (the
 counterpart of the reference's ``lax.scan``), with ``accumulate=M``
@@ -21,6 +37,7 @@ read one step later, after an event recorded behind that copy.
 """
 from __future__ import annotations
 
+import functools
 import time
 import warnings
 from typing import Callable, Dict, Iterable, Mapping, Optional
@@ -29,7 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import profiler
+from .. import jit, profiler
 from ..io.prefetch import DevicePrefetcher, PipelineMetrics
 
 __all__ = ["create_train_step", "create_multistep_train_step", "run_steps",
@@ -58,6 +75,125 @@ def _pieces(model: nn.Module, loss_fn: Optional[Callable]):
     return [p for _, p in named], wd_mask, device, loss_call
 
 
+def _step_body(optimizer, wd_mask, loss_call):
+    """One eager step on device tensors: the body of a train step."""
+    def body(ids, labels, lr) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        loss = loss_call(ids, labels)
+        loss.backward()
+        optimizer.apply_gradients(lr, wd_mask=wd_mask)
+        return loss.detach()
+    return body
+
+
+def _watched(optimizer, params) -> list:
+    """The tensors a captured step updates in place: the parameters, the
+    master weights and every optimizer state tensor."""
+    out = list(params) + list(optimizer._master_weights.values())
+    for p in params:
+        st = optimizer.state.get(p)
+        if st:
+            out += [v for v in st.values() if isinstance(v, torch.Tensor)]
+    return out
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in host memory (pinned, and enqueued without a
+    wait, for a tensor on the card)."""
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda)
+    return out.copy_(t, non_blocking=t.is_cuda)
+
+
+class _CapturedStep:
+    """``body(ids, labels, lr)`` as one CUDA graph per (ids, labels)
+    signature (module docstring). The graphs share one ``jit.Graphs``:
+    one memory pool and capture stream; the tensors they update in place
+    (parameters, master weights, optimizer state) are watched for
+    rebinding."""
+
+    def __init__(self, body, model, optimizer, params, device, check=None):
+        self._body = body
+        self._check = check
+        self._params = params
+        self._device = device
+        # the watch holds the optimizer and parameters, not this object:
+        # no reference cycle keeps a dropped model alive
+        self._graphs = jit.Graphs(device, jit._module_generators(model),
+                                  functools.partial(_watched, optimizer,
+                                                    params), "train step")
+        self._by_sig: dict = {}
+        self._grads: dict = {}  # each graph's gradients, by signature
+        self._lr = None         # the rate's 0-d fp64 buffer
+        self._last = None       # the graph whose gradients p.grad holds
+        self._host = (optimizer._host_counts, optimizer._add_host_counts)
+
+    def _capture(self, key, inputs):
+        g = self._by_sig[key] = self._graphs.capture(self._body, inputs,
+                                                     host=self._host)
+        self._grads[key] = [p.grad for p in self._params]
+        return g
+
+    def __call__(self, ids, labels, lr) -> torch.Tensor:
+        ids = torch.as_tensor(ids, device=self._device)
+        labels = torch.as_tensor(labels, device=self._device)
+        if self._check is not None:
+            self._check(ids)
+        key = jit.signature((ids, labels))
+        g = self._by_sig.get(key)
+        if g is None:
+            # the signature's first step, eagerly on the capture stream.
+            # Its gradients wait in host memory while the graph makes its
+            # own (the device never holds both sets), then are copied
+            # into the graph's, which the parameters keep.
+            loss = self._graphs.warm_up(self._body, (ids, labels, lr),
+                                        restore=False)
+            held = [None if p.grad is None else _to_host(p.grad)
+                    for p in self._params]
+            for p in self._params:
+                p.grad = None
+            if self._lr is None:
+                self._lr = torch.zeros((), dtype=torch.float64,
+                                       device=self._device)
+            self._capture(key, [ids.clone(), labels.clone(), self._lr])
+            for p, h in zip(self._params, held):
+                if h is None or p.grad is None:
+                    p.grad = None
+                else:
+                    p.grad.copy_(h, non_blocking=True)
+            self._last = None
+            return loss
+        if self._graphs.stale(g):
+            g = self._capture(key, g.inputs)
+        self._lr.fill_(lr)
+        loss = g.run((ids, labels, self._lr))
+        if self._last is not g:
+            for p, t in zip(self._params, self._grads[key]):
+                p.grad = t
+            self._last = g
+        return loss
+
+    @property
+    def compile_count(self) -> int:
+        """Graphs captured, re-captures after a rebinding included."""
+        return self._graphs.compile_count
+
+
+def _step(body, model, optimizer, params, device, check=None):
+    """The train step of ``body``: captured on the card, else eager.
+    ``ids``/``labels`` are moved to ``device`` and checked by ``check``
+    first."""
+    if jit.captures_on(device):
+        return _CapturedStep(body, model, optimizer, params, device, check)
+
+    def train_step(ids, labels, lr) -> torch.Tensor:
+        ids = torch.as_tensor(ids, device=device)
+        labels = torch.as_tensor(labels, device=device)
+        if check is not None:
+            check(ids)
+        return body(ids, labels, lr)
+    return train_step
+
+
 def create_train_step(model: nn.Module, optimizer,
                       loss_fn: Optional[Callable] = None):
     """``train_step(ids, labels, lr) -> loss``: one forward, backward and
@@ -66,19 +202,12 @@ def create_train_step(model: nn.Module, optimizer,
     labels)`` is given. ``ids``/``labels`` are moved to the model's
     device; the returned loss is a detached 0-d tensor there (reading it
     synchronises). The gradients of the step stay on the parameters
-    until the next step."""
-    _, wd_mask, device, loss_call = _pieces(model, loss_fn)
-
-    def train_step(ids, labels, lr: float) -> torch.Tensor:
-        ids = torch.as_tensor(ids, device=device)
-        labels = torch.as_tensor(labels, device=device)
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_call(ids, labels)
-        loss.backward()
-        optimizer.apply_gradients(lr, wd_mask=wd_mask)
-        return loss.detach()
-
-    return train_step
+    until the next step. On the card, one CUDA graph per (ids, labels)
+    signature (module docstring; ``train_step.compile_count`` counts the
+    captures)."""
+    params, wd_mask, device, loss_call = _pieces(model, loss_fn)
+    return _step(_step_body(optimizer, wd_mask, loss_call), model,
+                 optimizer, params, device)
 
 
 def create_multistep_train_step(model: nn.Module, optimizer,
@@ -97,11 +226,9 @@ def create_multistep_train_step(model: nn.Module, optimizer,
     key). A leading dim other than K, or a microbatch dim other than M,
     raises ``ValueError`` before anything runs."""
     params, wd_mask, device, loss_call = _pieces(model, loss_fn)
-    single = create_train_step(model, optimizer, loss_fn)
+    single = _step_body(optimizer, wd_mask, loss_call)
 
-    def step_k(ids, labels, lr: float) -> torch.Tensor:
-        ids = torch.as_tensor(ids, device=device)
-        labels = torch.as_tensor(labels, device=device)
+    def check(ids):
         if ids.shape[0] != steps:
             raise ValueError(
                 f"steps={steps} expects inputs stacked [{steps}, "
@@ -112,6 +239,8 @@ def create_multistep_train_step(model: nn.Module, optimizer,
                 f"accumulate={accumulate} expects inputs stacked "
                 f"[steps, {accumulate}, batch, ...]; got microbatch dim "
                 f"{ids.shape[1]} in {tuple(ids.shape)}")
+
+    def body(ids, labels, lr) -> torch.Tensor:
         losses = []
         for i in range(steps):
             if accumulate == 1:
@@ -136,7 +265,7 @@ def create_multistep_train_step(model: nn.Module, optimizer,
             losses.append(lsum / accumulate)
         return torch.stack(losses)
 
-    return step_k
+    return _step(body, model, optimizer, params, device, check)
 
 
 def _on_card(t: torch.Tensor) -> bool:

@@ -25,10 +25,17 @@ def embedding(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     reference's ``jnp.take(..., mode="clip")`` does: never Python's
     negative indexing, never an out-of-bounds read on the card. With
     ``FLAGS_check_index_bounds`` such ids raise ``ValueError`` first
-    (one host sync per call)."""
+    (one host sync per call; under a CUDA-graph capture the flag raises
+    ``RuntimeError``)."""
     ids = x.long()
     n = weight.shape[0]
     if _flags.get_flag("check_index_bounds") and ids.numel():
+        from ...jit import is_capturing
+        if is_capturing():
+            raise RuntimeError(
+                "FLAGS_check_index_bounds reads the embedding ids on the "
+                "host, which a CUDA-graph capture cannot do: turn the flag "
+                "off for a captured step")
         lo, hi = int(ids.min()), int(ids.max())
         if lo < 0 or hi >= n:
             raise ValueError(f"embedding ids out of range [0, {n}): "

@@ -3,7 +3,8 @@
 ``torch.optim.Optimizer`` subclasses running paddle_tpu's update rules,
 not ``torch.optim``'s. Each optimizer defines ``_update(p32, g32, state,
 lr, wd)``, the reference's ``_update``: the fp32 parameter and gradient
-in, the new fp32 parameter out, its state dict updated in place. The
+in (``lr`` a ``_Rate``, below), the new fp32 parameter out, its state
+dict's tensors updated in place. The
 shared ``Optimizer`` base does the rest as the reference's eager
 ``step()`` does:
 
@@ -36,6 +37,18 @@ update, the counterpart of the reference's ``apply_gradients``: it
 neither clips nor reads the schedule, and takes the gradients from
 ``grads`` (``{id(param): tensor}``) when given instead of ``.grad``.
 Parameters are updated in place.
+
+Every tensor an optimizer keeps (moments, beta powers, master weights,
+amsgrad maxima, ...) is made once, at a parameter's first update, and
+updated in place from then on, and the learning rate may be a 0-d tensor
+on the parameters' device: so a CUDA graph captured over a step
+(``models/trainer.py``) replays it, reading the rate from its buffer. A
+rate reaches the rules as a ``_Rate``: fp32 ``lr`` and
+``decayed(wd)`` = fp32(1 - lr * wd) worked out in fp64, which gives a
+float rate and a float64 tensor holding it the bits of Python-float
+arithmetic. The host-side counts (``_step_count``, ``state["step"]``)
+stay Python ints: a replay advances them through
+``_host_counts``/``_add_host_counts``.
 
 With the flag ``use_fused_optimizer`` (default on, as the reference's)
 Adam and AdamW step multi-tensor, the counterpart of the reference's
@@ -175,10 +188,11 @@ class Optimizer(torch.optim.Optimizer):
         return out
 
     @torch.no_grad()
-    def step(self, closure=None, lr: Optional[float] = None,
+    def step(self, closure=None, lr=None,
              wd_mask: Optional[Mapping[int, bool]] = None):
         """One update of every parameter that has a gradient: clipped by
-        ``grad_clip``, at ``get_lr()`` unless ``lr`` is given."""
+        ``grad_clip``, at ``get_lr()`` unless ``lr`` (a float or a 0-d
+        tensor) is given."""
         loss = None
         if closure is not None:
             with torch.enable_grad():
@@ -191,18 +205,20 @@ class Optimizer(torch.optim.Optimizer):
         return loss
 
     @torch.no_grad()
-    def apply_gradients(self, lr: float,
+    def apply_gradients(self, lr,
                         wd_mask: Optional[Mapping[int, bool]] = None,
                         grads: Optional[Mapping[int, torch.Tensor]] = None):
         """The functional trainer's update: every parameter with a
-        gradient at rate ``lr``; no clipping, no schedule. Profiled under
+        gradient at rate ``lr`` (a float, or a 0-d tensor, which a
+        captured step fills before each replay); no clipping, no
+        schedule. Profiled under
         the range ``step()`` gets from ``torch.optim``."""
         with torch.profiler.record_function(
                 f"Optimizer.step#{type(self).__name__}.step"):
             self._apply(self._params_grads(grads), lr, wd_mask)
 
     def _apply(self, params_grads, lr, wd_mask):
-        lr = float(lr)
+        rates = {}
         self._step_count += 1
         grad_of = {id(p): g for p, g in params_grads}
         fused = get_flag("use_fused_optimizer") and self._fusable()
@@ -217,6 +233,8 @@ class Optimizer(torch.optim.Optimizer):
                 if wd_mask is not None and not wd_mask.get(id(p), True):
                     decay = 0.0
                 state = self._state_of(p)
+                if p.device not in rates:
+                    rates[p.device] = _Rate(lr, p.device)
                 if fused:
                     key = (p.device, p.dtype, g.dtype, decay, state["step"])
                     batches.setdefault(key, []).append((p, g))
@@ -227,20 +245,35 @@ class Optimizer(torch.optim.Optimizer):
                     g32 = g32 + decay * (torch.sign(p32) if self._l1
                                          else p.float())
                 wd = decay if decoupled else 0.0
-                new = self._update(p32, g32, state, lr, wd)
+                new = self._update(p32, g32, state, rates[p.device], wd)
                 if self._uses_master(p):
-                    self._master_weights[p] = new
+                    p32.copy_(new)
                 p.copy_(new)
                 state["step"] += 1
-            for (*_, decay, _), pairs in batches.items():
+            for (dev, *_, decay, _), pairs in batches.items():
                 for chunk in _chunks(pairs, FUSED_CHUNK_ELEMENTS):
-                    self._fused_update(chunk, lr, decay)
+                    self._fused_update(chunk, rates[dev], decay)
 
     def _fusable(self) -> bool:
         return False
 
     def _fused_update(self, pairs, lr, decay):
         raise NotImplementedError
+
+    def _host_counts(self) -> List[int]:
+        """The counts kept on the host: ``_step_count``, then each
+        parameter's ``state["step"]`` (0 before its first update)."""
+        return [self._step_count] + [
+            self.state[p]["step"] if p in self.state and self.state[p]
+            else 0 for p in self._parameter_list]
+
+    def _add_host_counts(self, delta: List[int]) -> None:
+        """Advance the host counts by ``delta`` (``_host_counts``'
+        layout)."""
+        self._step_count += delta[0]
+        for p, d in zip(self._parameter_list, delta[1:]):
+            if d:
+                self.state[p]["step"] += d
 
     def clear_grad(self, set_to_zero=True):
         """Drop every parameter's gradient (as the reference, whatever
@@ -296,10 +329,34 @@ class Optimizer(torch.optim.Optimizer):
                         v = state_dict[key]
                         if not isinstance(v, torch.Tensor):
                             v = torch.from_numpy(np.array(v))
-                        st[k] = v.to(device=st[k].device,
-                                     dtype=st[k].dtype).clone()
+                        st[k].copy_(v.to(device=st[k].device,
+                                         dtype=st[k].dtype))
 
     load_state_dict = set_state_dict
+
+
+class _Rate:
+    """A step's learning rate on one device, as the update rules read it:
+    ``lr``, an fp32 0-d tensor (a rule's ``lr * x`` is then the fp32
+    product a Python float gives), and ``decayed(wd)``, fp32(1 - lr * wd)
+    worked out in fp64 from the rate as given, as Python-float arithmetic
+    rounds it. ``lr``: a float, or a 0-d tensor (float64 holds a float
+    exactly)."""
+
+    def __init__(self, lr, device: torch.device):
+        if isinstance(lr, torch.Tensor):
+            self._lr64 = lr.to(device=device, dtype=torch.float64)
+        else:
+            self._lr64 = torch.full((), float(lr), dtype=torch.float64,
+                                    device=device)
+        self.lr = self._lr64.float()
+        self._decayed: Dict[float, torch.Tensor] = {}
+
+    def decayed(self, wd: float) -> torch.Tensor:
+        out = self._decayed.get(wd)
+        if out is None:
+            out = self._decayed[wd] = (1.0 - self._lr64 * wd).float()
+        return out
 
 
 def _chunks(params: list, cap: int):
@@ -337,7 +394,7 @@ class SGD(Optimizer):
                          name, multi_precision)
 
     def _update(self, p32, g32, state, lr, wd):
-        return p32 - lr * g32
+        return p32 - lr.lr * g32
 
 
 class Momentum(Optimizer):
@@ -355,8 +412,8 @@ class Momentum(Optimizer):
     def _update(self, p32, g32, state, lr, wd):
         v = self._momentum * state["velocity"] + g32
         upd = g32 + self._momentum * v if self._nesterov else v
-        state["velocity"] = v
-        return p32 - lr * upd
+        state["velocity"].copy_(v)
+        return p32 - lr.lr * upd
 
 
 class Adagrad(Optimizer):
@@ -375,8 +432,8 @@ class Adagrad(Optimizer):
 
     def _update(self, p32, g32, state, lr, wd):
         m = state["moment"] + torch.square(g32)
-        state["moment"] = m
-        return p32 - lr * g32 / (torch.sqrt(m) + self._epsilon)
+        state["moment"].copy_(m)
+        return p32 - lr.lr * g32 / (torch.sqrt(m) + self._epsilon)
 
 
 class RMSProp(Optimizer):
@@ -400,15 +457,15 @@ class RMSProp(Optimizer):
     def _update(self, p32, g32, state, lr, wd):
         rho = self._rho
         ms = rho * state["mean_square"] + (1 - rho) * torch.square(g32)
-        state["mean_square"] = ms
+        state["mean_square"].copy_(ms)
         if self._centered:
             mg = rho * state["mean_grad"] + (1 - rho) * g32
             denom = torch.sqrt(ms - torch.square(mg) + self._epsilon)
-            state["mean_grad"] = mg
+            state["mean_grad"].copy_(mg)
         else:
             denom = torch.sqrt(ms + self._epsilon)
-        mom = self._momentum * state["momentum"] + lr * g32 / denom
-        state["momentum"] = mom
+        mom = self._momentum * state["momentum"] + lr.lr * g32 / denom
+        state["momentum"].copy_(mom)
         return p32 - mom
 
 
@@ -450,28 +507,29 @@ class Adam(Optimizer):
         b2p = state["beta2_pow"] * b2
         mhat = m1 / (1 - b1p)
         if self._amsgrad:
-            m2max = torch.maximum(state["moment2_max"], m2)
+            m2max = state["moment2_max"]
+            torch.maximum(m2max, m2, out=m2max)
             vhat = m2max / (1 - b2p)
-            state["moment2_max"] = m2max
         else:
             vhat = m2 / (1 - b2p)
         if wd:
-            p32 = p32 * (1.0 - lr * wd)
-        p32 = p32 - lr * mhat / (torch.sqrt(vhat) + self._epsilon)
-        state["moment1"] = m1.to(self._moment_dtype)
-        state["moment2"] = m2.to(self._moment_dtype)
-        state["beta1_pow"] = b1p
-        state["beta2_pow"] = b2p
+            p32 = p32 * lr.decayed(wd)
+        p32 = p32 - lr.lr * mhat / (torch.sqrt(vhat) + self._epsilon)
+        state["moment1"].copy_(m1)
+        state["moment2"].copy_(m2)
+        state["beta1_pow"].copy_(b1p)
+        state["beta2_pow"].copy_(b2p)
         return p32
 
     def _fusable(self) -> bool:
         return True
 
-    def _fused_update(self, pairs, lr: float, decay: float) -> None:
+    def _fused_update(self, pairs, lr: "_Rate", decay: float) -> None:
         """``_update`` of every ``(param, grad)`` in ``pairs`` (one
-        device, dtypes, decay and step count, hence one pair of beta
-        powers and one master-weight choice), each operation one
-        ``torch._foreach_*`` call over the group."""
+        device, dtypes, decay and step count, hence equal beta powers and
+        one master-weight choice), each operation one
+        ``torch._foreach_*`` call over the group, every kept tensor
+        updated in place."""
         b1, b2 = self._beta1, self._beta2
         decoupled = self._decoupled_weight_decay()
         params = [p for p, _ in pairs]
@@ -479,16 +537,19 @@ class Adam(Optimizer):
         master = self._uses_master(params[0])
         g = _fp32([g for _, g in pairs])
         if master:
-            p32 = [self._master(p) for p in params]
+            masters = p32 = [self._master(p) for p in params]
         else:
             p32 = _fp32(params)
         if decay and not decoupled:
             g = torch._foreach_add(g, torch._foreach_mul(
                 torch._foreach_sign(p32) if self._l1 else _fp32(params),
                 decay))
-        m1 = torch._foreach_mul(_fp32([s["moment1"] for s in states]), b1)
+        # fp32 moments are updated where they are, others in fp32 copies
+        m1 = _fp32([s["moment1"] for s in states])
+        torch._foreach_mul_(m1, b1)
         torch._foreach_add_(m1, torch._foreach_mul(g, 1 - b1))
-        m2 = torch._foreach_mul(_fp32([s["moment2"] for s in states]), b2)
+        m2 = _fp32([s["moment2"] for s in states])
+        torch._foreach_mul_(m2, b2)
         gg = torch._foreach_mul(g, g)
         torch._foreach_mul_(gg, 1 - b2)
         torch._foreach_add_(m2, gg)
@@ -497,36 +558,31 @@ class Adam(Optimizer):
         b2p = states[0]["beta2_pow"] * b2
         step = torch._foreach_div(m1, 1 - b1p)               # mhat
         if self._amsgrad:
-            m2max = torch._foreach_maximum(
-                [s["moment2_max"] for s in states], m2)
+            m2max = [s["moment2_max"] for s in states]
+            torch._foreach_maximum_(m2max, m2)
             den = torch._foreach_div(m2max, 1 - b2p)         # vhat
         else:
             den = torch._foreach_div(m2, 1 - b2p)            # vhat
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, self._epsilon)
-        torch._foreach_mul_(step, lr)
+        torch._foreach_mul_(step, lr.lr)
         torch._foreach_div_(step, den)
         del den
         if decay and decoupled:
-            p32 = torch._foreach_mul(p32, 1.0 - lr * decay)
+            p32 = torch._foreach_mul(p32, lr.decayed(decay))
         torch._foreach_sub_(p32, step)
-        if master:
-            for p, new in zip(params, p32):
-                self._master_weights[p] = new
+        if master and p32[0] is not masters[0]:
+            torch._foreach_copy_(masters, p32)
         if p32[0] is not params[0]:     # else fp32 p32 is the parameters
             torch._foreach_copy_(params, p32)
         for key, new in (("moment1", m1), ("moment2", m2)):
             olds = [s[key] for s in states]
-            if olds[0].dtype == torch.float32:
-                for s, t in zip(states, new):
-                    s[key] = t
-            else:
+            if new[0] is not olds[0]:
                 torch._foreach_copy_(olds, new)
-        for i, s in enumerate(states):
-            if self._amsgrad:
-                s["moment2_max"] = m2max[i]
-            s["beta1_pow"] = b1p
-            s["beta2_pow"] = b2p
+        for key, new in (("beta1_pow", b1p), ("beta2_pow", b2p)):
+            torch._foreach_copy_([s[key] for s in states],
+                                 [new] * len(states))
+        for s in states:
             s["step"] += 1
 
 
@@ -573,8 +629,11 @@ class Adamax(Optimizer):
         m = self._beta1 * state["moment"] + (1 - self._beta1) * g32
         u = torch.maximum(self._beta2 * state["inf_norm"], torch.abs(g32))
         b1p = state["beta1_pow"] * self._beta1
-        state.update(moment=m, inf_norm=u, beta1_pow=b1p)
-        return p32 - lr / (1 - b1p) * m / (u + self._epsilon)
+        for k, v in (("moment", m), ("inf_norm", u), ("beta1_pow", b1p)):
+            state[k].copy_(v)
+        # a float's ``lr / t`` is PyTorch's ``t.reciprocal() * lr``
+        return p32 - (1 - b1p).reciprocal() * lr.lr * m / (
+            u + self._epsilon)
 
 
 class Adadelta(Optimizer):
@@ -597,8 +656,9 @@ class Adadelta(Optimizer):
             torch.sqrt(asg + eps)
         asu = rho * state["avg_squared_update"] + \
             (1 - rho) * torch.square(upd)
-        state.update(avg_squared_grad=asg, avg_squared_update=asu)
-        return p32 - lr * upd
+        state["avg_squared_grad"].copy_(asg)
+        state["avg_squared_update"].copy_(asu)
+        return p32 - lr.lr * upd
 
 
 class Lamb(Optimizer):
@@ -643,8 +703,10 @@ class Lamb(Optimizer):
         r_norm = torch.linalg.vector_norm(r)
         ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
                             torch.ones_like(w_norm))
-        state.update(moment1=m1, moment2=m2, beta1_pow=b1p, beta2_pow=b2p)
-        return p32 - lr * ratio * r
+        for k, v in (("moment1", m1), ("moment2", m2), ("beta1_pow", b1p),
+                     ("beta2_pow", b2p)):
+            state[k].copy_(v)
+        return p32 - lr.lr * ratio * r
 
 
 class Rprop(Optimizer):
@@ -676,5 +738,6 @@ class Rprop(Optimizer):
                              torch.where(sign < 0, eta_neg * one, one))
         new_lr = torch.clamp(state["lr"] * factor, lo, hi)
         step_grad = torch.where(sign < 0, torch.zeros_like(g32), g32)
-        state.update(prev_grad=step_grad, lr=new_lr)
+        state["prev_grad"].copy_(step_grad)
+        state["lr"].copy_(new_lr)
         return p32 - torch.sign(step_grad) * new_lr

@@ -10,15 +10,20 @@ them.
 Execution model — one worker thread:
 
 - Every step (prefill of one admitted request, or one decode step of
-  the whole active batch) is one call of ``_DecodeStepLayer``, run
-  eagerly by ``_StepExecutor`` under ``torch.inference_mode()``. There
-  is no ``jit``: the executor keeps paddle_tpu's signature set, (batch
-  bucket, page bucket) for decode and (prompt bucket, page bucket) for
-  prefill, so ``compile_count`` and ``num_executables()`` still count
-  the distinct step shapes. Capturing each signature as a CUDA graph is
-  later work.
+  the whole active batch) is one call of ``StaticFunction(
+  _DecodeStepLayer(...))``. ``_StepExecutor`` keeps one
+  ``compile_for`` executable per step signature, as paddle_tpu does:
+  (batch bucket, page bucket) for decode and (prompt bucket, page
+  bucket) for prefill. On the card each executable is one CUDA graph,
+  captured by ``warmup()`` or at the signature's first step, and a step
+  copies its int32 host arrays into the graph's static inputs and
+  replays it; on the CPU it runs eagerly. ``compile_count`` and
+  ``num_executables()`` count the executables.
 - The KV pools are written in place (see ``kvcache.py``): the
-  counterpart of donating them back to each step on the TPU.
+  counterpart of donating them back to each step on the TPU. They are
+  the graphs' own static inputs (``compile_for`` adopts them), so a
+  step returns the server's pool tensors themselves; the only copy to
+  the host is the ``[B]`` sampled tokens.
 - Between steps the scheduler admits queued requests into free slots,
   grows sequences by one page at page boundaries, and evicts finished/
   expired sequences — host bookkeeping over fixed-shape device state.
@@ -39,6 +44,7 @@ from torch import nn
 
 from ...core.random import DEFAULT_SEED, make_generator
 from ...device import resolve_device
+from ...jit import StaticFunction, signature
 from ..batcher import (DeadlineExceeded, ServerClosed, ServerOverloaded,
                        ServingError)
 from ..bucketing import (BucketOverflow, next_bucket_strict, page_buckets,
@@ -94,57 +100,61 @@ class _DecodeStepLayer(nn.Module):
         return (nxt, *flat)
 
 
-def _spec(a) -> tuple:
-    """(shape, dtype name) of an array, a tensor, or a (shape, dtype)
-    pair."""
-    if isinstance(a, tuple):
-        shape, dtype = a
-        return tuple(shape), str(np.dtype(dtype))
-    if isinstance(a, torch.Tensor):
-        return tuple(a.shape), str(a.dtype).replace("torch.", "")
-    return tuple(a.shape), str(a.dtype)
-
-
 class _StepExecutor:
-    """Runs the step layer eagerly and keeps the set of step signatures
-    it has seen (paddle_tpu's executable cache, without the executables:
-    ``compile_count`` and ``num_executables()`` count the signatures).
-    No LRU: the bucket sets bound the key space by design."""
+    """``compile_for``-backed executable cache keyed on the full step
+    signature. No LRU: the bucket sets bound the key space by design,
+    and ``compile_count`` is the quantity tests pin: an executable made,
+    or a graph captured again after the model's weights were rebound."""
 
-    def __init__(self, layer: _DecodeStepLayer, metrics: DecodeMetrics,
-                 device: torch.device):
-        self._layer = layer
-        self._device = device
-        self._seen: set = set()
+    def __init__(self, sf: StaticFunction, metrics: DecodeMetrics):
+        self._sf = sf
+        self._compiled: dict = {}
         self._metrics = metrics
-        # warmup() registers from the caller's thread, the worker from
-        # its own
+        # covers compile AND run: warmup() captures from the caller's
+        # thread, the worker from its own, and a capture must not
+        # interleave with another thread's replay
         self._lock = threading.Lock()
 
-    def compile(self, specs) -> bool:
-        """Register the signature of ``specs`` (arrays, tensors, or
-        (shape, dtype) pairs); True when it is new."""
-        key = tuple(_spec(s) for s in specs)
-        with self._lock:
-            if key in self._seen:
-                return False
-            self._seen.add(key)
+    def _get(self, specs):
+        """The executable of ``specs``, made when missing (under the
+        lock); returns (executable, made)."""
+        key = signature(specs)
+        compiled = self._compiled.get(key)
+        if compiled is not None:
+            return compiled, False
+        compiled = self._compiled[key] = self._sf.compile_for(*specs)
         self._metrics.inc("compile_count")
-        return True
+        return compiled, True
+
+    def compile(self, specs) -> bool:
+        """Ensure an executable exists for ``specs`` ((shape, dtype)
+        pairs, arrays, or the pool tensors themselves); True when this
+        call made it."""
+        with self._lock:
+            return self._get(specs)[1]
 
     def run(self, host_arrays, pools):
-        """One step: the int32 host arrays go to the device, the pools
-        are updated in place. Enters ``inference_mode`` here, in the
-        calling (worker) thread, since the mode is thread-local."""
-        self.compile(list(host_arrays) + list(pools))
-        dev = self._device
-        with torch.inference_mode():
-            args = [torch.from_numpy(a).to(dev) for a in host_arrays]
-            return self._layer(*args, *pools)
+        """One step: the int32 host arrays go into the executable's
+        inputs, the pools are updated in place and returned as
+        themselves. ``inference_mode`` is entered here, in the calling
+        (worker) thread, since the mode is thread-local."""
+        args = list(host_arrays) + list(pools)
+        with self._lock:
+            compiled, _ = self._get(args)
+            before = self._sf.compile_count
+            with torch.inference_mode():
+                out = compiled(*args)
+            recaptured = self._sf.compile_count - before
+        if recaptured:
+            self._metrics.inc("compile_count", recaptured)
+        if any(a is not b for a, b in zip(out[1:], pools)):
+            raise ServingError("the step returned KV pools other than the "
+                               "server's own tensors")
+        return out
 
     def signatures(self) -> list:
         with self._lock:
-            return list(self._seen)
+            return list(self._compiled)
 
 
 class DecodeServer(ServerLifecycleMixin):
@@ -257,9 +267,9 @@ class DecodeServer(ServerLifecycleMixin):
             for a in pair]
         if temperature > 0.0 and generator is None:
             generator = make_generator(DEFAULT_SEED, self.device)
-        self._exec = _StepExecutor(
-            _DecodeStepLayer(model, self.page_len, temperature, generator),
-            self._metrics, self.device)
+        self._sf = StaticFunction(
+            _DecodeStepLayer(model, self.page_len, temperature, generator))
+        self._exec = _StepExecutor(self._sf, self._metrics)
         self._sched = Scheduler(
             max_slots=max_slots, allocator=PageAllocator(num_pages),
             page_len=self.page_len, max_context=self.max_context,
@@ -340,10 +350,12 @@ class DecodeServer(ServerLifecycleMixin):
                            eos_id=eos_id).result(timeout)
 
     def warmup(self, *, decode: bool = True, prefill: bool = True) -> int:
-        """Register every admissible step signature: all (batch bucket,
-        page bucket) decode pairs and every prefill bucket at its own
-        page bucket. No step runs, the KV pools are untouched. Returns
-        the number of new signatures."""
+        """Make the executable of every admissible step signature: all
+        (batch bucket, page bucket) decode pairs and every prefill bucket
+        at its own page bucket. On the card each is a captured CUDA
+        graph, whose warm-up runs the step once on zero-filled inputs:
+        page table rows of the scratch page, so the pools' pages stay
+        as they were. Returns the number of new executables."""
         def specs(b, s, p):
             return [((b, s), np.int32), ((b,), np.int32),
                     ((b, p), np.int32), ((b,), np.int32)] + self._pools
@@ -532,7 +544,6 @@ class DecodeServer(ServerLifecycleMixin):
         out = self._exec.run(
             [tokens, np.zeros((1,), np.int32), rows,
              np.asarray([len(eff) - 1], np.int32)], self._pools)
-        self._pools = list(out[1:])
         # the sampled token IS the response payload this step exists to
         # produce (and the input of the next step): one [1] copy to host
         nxt = int(out[0].cpu()[0])
@@ -577,7 +588,6 @@ class DecodeServer(ServerLifecycleMixin):
         out = self._exec.run(
             [tokens, positions, rows, np.zeros((bb,), np.int32)],
             self._pools)
-        self._pools = list(out[1:])
         # ONE batched copy of [B] sampled ids per decode step (clients
         # stream them; the host scheduler needs them for eos/length)
         nxt = out[0].cpu().numpy()

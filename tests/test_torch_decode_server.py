@@ -264,6 +264,38 @@ class TestServing:
                          max_new_tokens=3, timeout=120)
             assert srv.stats()["compile_count"] == n
 
+    def test_warmup_makes_every_executable_through_compile_for(self,
+                                                               model):
+        """``warmup()`` makes one executable per signature through
+        ``StaticFunction.compile_for`` (the pools passed as themselves), a
+        served run after it makes none, and every step hands back the
+        server's own pool tensors."""
+        with _server(model, page_len=8, prefill_buckets=[16]) as srv:
+            made, steps = [], []
+            real_compile, real_run = srv._sf.compile_for, srv._exec.run
+
+            def compile_for(*specs):
+                made.append(specs)
+                return real_compile(*specs)
+
+            def run(host_arrays, pools):
+                out = real_run(host_arrays, pools)
+                steps.append(all(a is b for a, b in zip(out[1:], pools))
+                             and len(out) == len(pools) + 1)
+                return out
+            srv._sf.compile_for = compile_for
+            srv._exec.run = run
+            n = srv.warmup()
+            assert len(made) == n == 2 * 3 + 1
+            pools = list(srv._pools)
+            assert all(all(a is b for a, b in zip(spec[4:], pools))
+                       for spec in made)
+            srv.generate(_prompt(np.random.RandomState(4), 9),
+                         max_new_tokens=3, timeout=120)
+            assert len(made) == n and srv.stats()["compile_count"] == n
+            assert steps and all(steps)
+            assert all(a is b for a, b in zip(srv._pools, pools))
+
     def test_overload_sheds(self, model):
         with _server(model, max_slots=1, max_queue_size=1) as srv:
             rng = np.random.RandomState(5)

@@ -34,6 +34,7 @@ from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops.kernels import _build
 from paddle_tpu_torch.ops.kernels import flash_attention as tfa
+from paddle_tpu_torch.ops.kernels import launch_counters
 
 FWD = dict(rtol=2e-5, atol=2e-5)
 BWD = dict(rtol=1e-4, atol=1e-4)
@@ -1226,11 +1227,13 @@ def test_bf16_fma_route_backward_is_counted_checked_and_timed():
     Mask instantiations at D = 256 with a dbias, so that the earlier
     cases keep their draws. No main path expects a launch of them."""
     cs = _chip_smoke()
-    wrappers = cs._wrappers()
+    counters = launch_counters()            # the registry chip_smoke reads
+    counted = cs._counts()
     for kind in ("fwd", "dq", "dkv"):
         w = getattr(tfa, "flash_" + kind)
-        assert wrappers[f"flash_{kind}_mma"] is w.mma
-        assert wrappers[f"flash_{kind}_mma_bias"] is w.mma_bias
+        assert counters[f"flash_{kind}_mma"] is w.mma
+        assert counters[f"flash_{kind}_mma_bias"] is w.mma_bias
+        assert {f"flash_{kind}_mma", f"flash_{kind}_mma_bias"} <= set(counted)
     timed = {t[0]: t[1:] for t in cs.FLASH_TIMED}
     assert timed["gemma7b_d256"] == ("gemma7b-d256", cs.FMA_KINDS)
     assert set(cs.FMA_KINDS) <= set(timed["bert"][1])

@@ -459,3 +459,53 @@ def test_amp_decorate_matches_the_reference(master_weight):
     assert to._multi_precision == ro._multi_precision == \
         (master_weight is not False)
     assert tamp.amp_decorate(tl, level="O1") is tl
+
+
+def _kept(opt, ps) -> list:
+    """Every tensor ``opt`` keeps for ``ps``: parameters, master weights
+    and state entries, in a fixed order."""
+    out = []
+    for p in ps:
+        out.append(p)
+        if p in opt._master_weights:
+            out.append(opt._master_weights[p])
+        out += [v for k, v in sorted(opt.state[p].items())
+                if isinstance(v, torch.Tensor)]
+    return out
+
+
+@pytest.mark.parametrize("setup", ["fp32", "bf16"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "loop"])
+@pytest.mark.parametrize("name", OPTIMIZERS)
+def test_state_is_updated_in_place_and_a_tensor_lr_gives_the_floats_bits(
+        name, fused, setup):
+    """Two steps leave every parameter, master weight (bf16 with
+    ``multi_precision``) and state tensor (Adam's amsgrad maxima among
+    them) where the first step put it, as a captured step needs; a 0-d
+    float64 tensor ``lr`` gives the float ``lr``'s bits."""
+    arrays, grads = _data(seed=3, steps=2)
+    dt = torch.float32 if setup == "fp32" else torch.bfloat16
+    prev = get_flags("use_fused_optimizer")
+    set_flags({"use_fused_optimizer": fused})
+    try:
+        runs = []
+        for lr in (0.01, torch.tensor(0.01, dtype=torch.float64)):
+            ps = _port_params(arrays, dt)
+            kw, _ = _config(name, "port")
+            kw.pop("learning_rate", None)
+            opt = getattr(topt, name)(
+                learning_rate=0.01, parameters=list(ps.values()),
+                multi_precision=setup == "bf16", **kw)
+            ptrs = None
+            for g in grads:
+                for k, p in ps.items():
+                    p.grad = torch.from_numpy(g[k]).to(dt)
+                opt.step(lr=lr)
+                kept = _kept(opt, ps.values())
+                now = [t.data_ptr() for t in kept]
+                assert ptrs is None or now == ptrs, name
+                ptrs = now
+            runs.append([t.detach().clone() for t in kept])
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), name
+    finally:
+        set_flags(prev)
