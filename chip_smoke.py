@@ -1,7 +1,8 @@
 """On-card smoke test of the PyTorch/CUDA port (paddle_tpu_torch).
 
     python3 chip_smoke.py [--seed N] [--out DIR] [--profile]
-                          [--phases kernels,serve,train,bert,llama,trainloop]
+                          [--phases kernels,serve,train,bert,llama,trainloop,
+                                    observe]
                           [--optimizer-ab]
 
 Needs one CUDA card; without one it exits non-zero and prints no result.
@@ -228,6 +229,41 @@ warm-up, its capture and the captured steps.
       device-blocked seconds); one capture for each twin, and a profiled
       replayed dispatch.
 
+10. observe: the port's observability on the captured GPT-2 small
+   server (cell ``gpt2s-fp32-decode8``: the serve phase's model, prompts
+   and seed), after ``warmup()``, whose 38 captures must each count once
+   in ``profiler.compile_count()``.
+   a. trace: a burst of 8 requests with the flight recorder on. Each
+      request's ``trace_id`` must carry ``decode::enqueue``, ``admit``,
+      ``prefill``, ``first_token`` and ``finish`` once each, in that
+      order by timestamp; the ``decode::step`` spans must number the
+      server's ``decode_steps``; ``compile_count()`` must not move;
+      ``decode_stats(name)`` must equal ``server.stats()``;
+      ``export_stats("text")`` must hold one line per numeric leaf of
+      ``export_stats()``, its ``tokens_generated`` the tokens served;
+      ``export_trace`` must write the ``paddleTrace`` section; launch
+      counts as the serve phase's.
+   b. Profiler: ``Profiler(targets=[CPU, GPU])`` over 4 replayed batch-8
+      decode steps, each in a ``RecordEvent``: the exported chrome trace
+      must hold as many LayerNorm kernel events as ``layer_norm``'s
+      launches rose (CUPTI's dropped records retried, as
+      ``_hold_profiled`` does), every one starting inside its step's
+      scope (25 a scope). A ``RecordEvent`` inside a call captured while
+      the Profiler records must leave the graph's kernels those of the
+      eager call.
+   c. device: ``device.Event(enable_timing=True)`` around a replayed
+      step, printed beside the Profiler's device time for a step;
+      ``device.memory_stats()`` must equal ``torch.cuda.memory_stats()``
+      under the reference's keys.
+   d. run_steps with tracing on at the width of
+      ``gpt2s-bf16-run-steps-k4-m2``, 3 dispatches after the first call:
+      one ``train::dispatch``, ``train::fetch`` and ``train::feed_wait``
+      span each, no capture, the run_steps cell's launches.
+   e. the cost of tracing: the host microseconds of a span and an event,
+      then bursts with the flight recorder off, on, on, off, off, on, on,
+      off: decode step p50 and mean, tokens/s and the garbage
+      collections of each (printed, no gate).
+
 ``--optimizer-ab`` adds GPT-2's and BERT's train cells with the flag
 ``use_fused_optimizer`` on and off in turns (ms/step, the profiled
 ``Optimizer.step`` span and idle share).
@@ -240,6 +276,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import json
 import math
 import os
@@ -1627,7 +1664,432 @@ def phase_profile(cell, model, prompts, out_dir, device="cuda"):
     return out
 
 
-PHASES = ("kernels", "serve", "train", "bert", "llama", "trainloop")
+OBSERVE_CELL = "gpt2s-fp32-decode8"
+OBSERVE_STEPS = 4              # replayed decode steps under the Profiler
+OBSERVE_DISPATCHES = 3         # run_steps dispatches with tracing on
+# a request's life in the flight recorder, in this order
+REQUEST_EVENTS = ("decode::enqueue", "decode::admit", "decode::prefill",
+                  "decode::first_token", "decode::finish")
+
+
+# the flight recorder off and on in turns (phase observe, e)
+TRACING_TURNS = (False, True, True, False, False, True, True, False)
+
+
+def _span_cost_us(n: int = 20000) -> dict:
+    """Host microseconds of one ``trace_span(...)`` + ``end()`` and one
+    ``trace_event`` as the decode loop calls them, tracing on and off
+    (on: into a ring of the calling thread, reset after)."""
+    from paddle_tpu_torch import profiler
+    out = {}
+    for on in (False, True):
+        if on:
+            profiler.enable_tracing()
+        try:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                profiler.trace_span("decode::step", cat="decode",
+                                    batch=8).end()
+            t1 = time.perf_counter()
+            for _ in range(n):
+                profiler.trace_event("decode::finish", cat="decode",
+                                     trace_id="x", reason="length",
+                                     tokens=32)
+            t2 = time.perf_counter()
+        finally:
+            profiler.disable_tracing()
+        key = "on" if on else "off"
+        out[f"span_{key}"] = (t1 - t0) / n * 1e6
+        out[f"event_{key}"] = (t2 - t1) / n * 1e6
+    return out
+
+
+def _burst(srv, prompts):
+    """The prompts submitted from a client thread each, as the serve
+    phase does; returns (token arrays, wall seconds)."""
+    streams = [None] * len(prompts)
+
+    def client(i):
+        streams[i] = srv.submit(prompts[i], max_new_tokens=NEW_TOKENS)
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    outs = [s.result(timeout=600) for s in streams]
+    return outs, time.perf_counter() - t0
+
+
+def _numeric_leaves(value) -> int:
+    """The ``name value`` lines ``export_stats("text")`` gives ``value``:
+    one per number or bool, one per list (its count)."""
+    if isinstance(value, dict):
+        return sum(_numeric_leaves(v) for v in value.values())
+    return int(isinstance(value, (list, tuple, bool, int, float)))
+
+
+def _hold_request_traces(events, n: int) -> dict:
+    """Each of ``n`` trace ids carries REQUEST_EVENTS once each, their
+    timestamps in that order; returns the mean gaps in ms."""
+    by = {}
+    for e in events:
+        rid = e.get("args", {}).get("trace_id")
+        if rid is not None and e["name"] in REQUEST_EVENTS:
+            by.setdefault(rid, []).append(e)
+    if len(by) != n:
+        raise AssertionError(f"{len(by)} trace ids carry request events, "
+                             f"expected {n}")
+    gaps = {}
+    for rid, evs in by.items():
+        names = sorted(e["name"] for e in evs)
+        if names != sorted(REQUEST_EVENTS):
+            raise AssertionError(f"request {rid}: events {names}, expected "
+                                 f"each of {REQUEST_EVENTS} once")
+        ts = {e["name"]: e["ts"] for e in evs}
+        seq = [ts[k] for k in REQUEST_EVENTS]
+        if seq != sorted(seq):
+            raise AssertionError(f"request {rid}: timestamps {seq} go "
+                                 f"backwards along {REQUEST_EVENTS}")
+        for a, b in zip(REQUEST_EVENTS, REQUEST_EVENTS[1:]):
+            gaps.setdefault(f"{a}->{b}", []).append((ts[b] - ts[a]) / 1e3)
+    return {k: float(np.mean(v)) for k, v in gaps.items()}
+
+
+def _profiled_decode_steps(replay, norm: str, per_step: int,
+                           out_dir) -> dict:
+    """``Profiler(targets=[CPU, GPU])`` over OBSERVE_STEPS calls of
+    ``replay`` (one batch-8 decode step), each inside a ``RecordEvent``
+    and synchronised there. The exported chrome trace must hold as many
+    ``norm`` kernel events as its counter rose (a shorter record is
+    profiled again, as ``_hold_profiled`` does), each starting inside a
+    step's scope, ``per_step`` a scope. Returns the device time of each
+    step: first kernel start to last kernel end, and the kernels' sum."""
+    from paddle_tpu_torch import profiler
+    targets = [profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU]
+    cls = _counter_class(norm)
+    path = os.path.join(out_dir, "observe_decode_profile.json")
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        before = _counts()[norm]
+        with profiler.Profiler(targets=targets) as p:
+            for i in range(OBSERVE_STEPS):
+                with profiler.RecordEvent(f"observe::step{i}"):
+                    replay()
+                    torch.cuda.synchronize()
+        launched = _counts()[norm] - before
+        p.export(path)
+        with open(path) as f:
+            doc = json.load(f)
+        kernels = [e for e in doc["traceEvents"] if e["cat"] == "kernel"]
+        norms = [e for e in kernels
+                 if _train_kernel_class(e["name"]) == cls]
+        log(f"  profiler (call {attempt}): {len(norms)} {cls} events in "
+            f"the exported trace, {launched} launches counted; "
+            f"{len(kernels)} device events, {len(doc['traceEvents'])} in all")
+        if len(norms) == launched:
+            break
+        if len(norms) > launched:
+            raise AssertionError(f"{len(norms)} {cls} events, {launched} "
+                                 f"launches")
+    else:
+        raise AssertionError(f"the exported trace holds {len(norms)} {cls} "
+                             f"events, {launched} launches were counted")
+    scopes = sorted((e for e in doc["traceEvents"] if e["cat"] == "user"
+                     and e["name"].startswith("observe::step")),
+                    key=lambda e: e["ts"])
+    if len(scopes) != OBSERVE_STEPS:
+        raise AssertionError(f"{len(scopes)} step scopes in the trace")
+    steps = []
+    for sc in scopes:
+        lo, hi = sc["ts"], sc["ts"] + sc["dur"]
+        inside = [k for k in kernels if lo <= k["ts"] <= hi]
+        n = sum(1 for k in inside if k in norms)
+        if n != per_step:
+            raise AssertionError(f"{sc['name']}: {n} {cls} events start "
+                                 f"inside its scope, expected {per_step}: "
+                                 f"scopes and kernels on two time axes")
+        steps.append({
+            "span_ms": (max(k["ts"] + k["dur"] for k in inside)
+                        - min(k["ts"] for k in inside)) / 1e3,
+            "busy_ms": sum(k["dur"] for k in inside) / 1e3,
+            "kernels": len(inside)})
+    return {"calls": attempt, "launches": launched, "steps": steps,
+            "trace": path}
+
+
+def _hold_scope_in_capture() -> dict:
+    """A call with a ``RecordEvent`` inside, captured while a device
+    Profiler records: the capture succeeds, its replay's kernels in
+    CUPTI's records are the eager call's, and it computes the eager
+    call's values."""
+    from paddle_tpu_torch import jit, profiler
+    targets = [profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU]
+
+    def f(x):
+        with profiler.RecordEvent("observe::inside_capture"):
+            return torch.tanh(x) * 2 + 1
+
+    x = torch.randn(4096, device="cuda")
+    sf = jit.StaticFunction(f)
+    with profiler.Profiler(targets=targets), torch.no_grad():
+        sf(x)                           # warm-up and capture
+        torch.cuda.synchronize()
+    (graph,) = sf._live.values()
+
+    def kernels(fn):
+        for _ in range(PROFILE_TRIES):
+            with profiler.Profiler(targets=targets) as p:
+                fn()
+                torch.cuda.synchronize()
+            got = sorted(e.name for e in p.events if e.category == "kernel")
+            if got:
+                return got
+        return got
+
+    with torch.no_grad():
+        eager, replayed = kernels(lambda: f(x)), kernels(graph.replay)
+        same = torch.equal(sf(x), f(x))
+    if replayed != eager or not same:
+        raise AssertionError(f"a scope inside the capture: the replay "
+                             f"launched {replayed}, the eager call {eager}; "
+                             f"values equal: {same}")
+    log(f"  a RecordEvent inside a capture under the Profiler: the replay "
+        f"launches the eager call's {len(eager)} kernels and its values")
+    return {"kernels": eager}
+
+
+def _observe_run_steps(seed, device="cuda") -> dict:
+    """``run_steps`` with tracing on at the run_steps cell's width:
+    OBSERVE_DISPATCHES dispatches of ``steps=K, accumulate=M`` after the
+    step's first call (its capture)."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.models import create_multistep_train_step, run_steps
+    from paddle_tpu_torch.optimizer import AdamW
+    K, M, micro = TRAINLOOP_K, TRAINLOOP_M, 4
+    cfg, (m,) = _gpt2_twins(seed, 1, device=device, bf16=True)
+    seq = cfg.max_position_embeddings
+    rng = np.random.RandomState(seed + 5)
+
+    def dispatch():
+        bs = _loop_batches(rng, cfg.vocab_size, seq, K, micro)
+        return tuple(torch.as_tensor(np.stack([b[i] for b in bs]),
+                                     device=device) for i in (0, 1))
+
+    step = create_multistep_train_step(
+        m, AdamW(TRAIN_LR, parameters=m.parameters(), weight_decay=0.01),
+        steps=K, accumulate=M)
+    first = profiler.compile_count()
+    step(*dispatch(), TRAIN_LR)
+    _sync(device)
+    c0 = profiler.compile_count()
+    feed = [dispatch() for _ in range(OBSERVE_DISPATCHES)]
+    profiler.enable_tracing()
+    _reset_counts()                                 # counted run starts
+    try:
+        losses = run_steps(step, feed, lr=TRAIN_LR)
+        _sync(device)
+        counts = _counts()                          # counted run ends
+    finally:
+        profiler.disable_tracing()
+    spans = {}
+    for e in profiler.snapshot_events():
+        if e["name"].startswith("train::"):
+            spans[e["name"]] = spans.get(e["name"], 0) + 1
+    n = OBSERVE_DISPATCHES
+    want = {"train::feed_wait": n, "train::dispatch": n, "train::fetch": n}
+    if spans != want:
+        raise AssertionError(f"run_steps spans {spans}, expected {want}")
+    if c0 - first != 1 or profiler.compile_count() != c0:
+        raise AssertionError(f"captures: {c0 - first} at the first call "
+                             f"(expected 1), "
+                             f"{profiler.compile_count() - c0} in run_steps "
+                             f"(expected 0)")
+    expect = _expected_counts(cfg.num_layers, M * K * n, "wgmma")
+    if counts != expect:
+        raise AssertionError(f"run_steps launches {counts}, expected "
+                             f"{expect}")
+    if not all(np.isfinite(v).all() and v.shape == (K,) for v in losses):
+        raise AssertionError(f"run_steps losses {losses}")
+    log(f"  run_steps traced: {spans}, one capture at the first call and "
+        f"none after; launches as the run_steps cell's")
+    return {"spans": spans, "launches": counts,
+            "losses": [v.tolist() for v in losses]}
+
+
+def phase_observe(seed, card, out_dir, device="cuda") -> dict:
+    """The flight recorder, the Profiler, the device API and the stats
+    registries on the captured GPT-2 small server (module docstring,
+    10a-e)."""
+    from paddle_tpu_torch import device as pdev
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.serving.decode import DecodeServer
+    _, _, norm, prompt_lens, max_context = SERVE_CELLS[OBSERVE_CELL]
+    cfg, model = _serve_model(OBSERVE_CELL, seed, device)
+    per_step = 2 * cfg.num_layers + 1
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in prompt_lens]
+    profiler.disable_tracing()
+    profiler.reset_tracing()
+    res = {"card": card}
+    srv = DecodeServer(model, max_slots=8, page_len=16,
+                       max_context=max_context, device=device,
+                       name="observe")
+    try:
+        c0 = profiler.compile_count()
+        n_warm = srv.warmup()
+        if profiler.compile_count() - c0 != n_warm:
+            raise AssertionError(f"warmup captured {n_warm}, compile_count "
+                                 f"rose {profiler.compile_count() - c0}")
+        # (a) a burst with the flight recorder on
+        real_run = srv._exec.run
+        decode_args = []
+
+        def run(host_arrays, pools):
+            if host_arrays[0].shape == (8, 1):
+                decode_args[:] = [[a.copy() for a in host_arrays]]
+            return real_run(host_arrays, pools)
+        srv._exec.run = run
+        c1 = profiler.compile_count()
+        profiler.enable_tracing()
+        _reset_counts()                             # counted run starts
+        try:
+            outs, wall = _burst(srv, prompts)
+            launches = _counts()                    # counted run ends
+        finally:
+            profiler.disable_tracing()
+            srv._exec.__dict__.pop("run", None)
+        events = profiler.snapshot_events()
+        st = srv.stats()
+        tokens = sum(len(o) for o in outs)
+        gaps = _hold_request_traces(events, len(prompts))
+        steps = sum(1 for e in events if e["name"] == "decode::step")
+        if steps != st["decode_steps"]:
+            raise AssertionError(f"{steps} decode::step spans, "
+                                 f"decode_steps {st['decode_steps']}")
+        if profiler.compile_count() != c1:
+            raise AssertionError(f"the traced run captured "
+                                 f"{profiler.compile_count() - c1}")
+        if profiler.decode_stats("observe") != srv.stats():
+            raise AssertionError("decode_stats('observe') differs from "
+                                 "server.stats()")
+        text = profiler.export_stats("text")
+        lines = text.strip().splitlines()
+        leaves = _numeric_leaves(profiler.export_stats())
+        served = [ln for ln in lines if ln.startswith(
+            "paddle_tpu_decode_observe_tokens_generated ")]
+        if len(lines) != leaves or served != [
+                f"paddle_tpu_decode_observe_tokens_generated {tokens}"]:
+            raise AssertionError(f"export_stats text: {len(lines)} lines "
+                                 f"for {leaves} numeric leaves; {served} "
+                                 f"for {tokens} tokens served")
+        expect = dict.fromkeys(launches, 0)
+        expect[norm] = per_step * (st["prefills"] + st["decode_steps"])
+        if launches != expect or st["completed"] != len(prompts):
+            raise AssertionError(f"launches {launches}, expected {expect}; "
+                                 f"stats {st}")
+        path = profiler.export_trace(os.path.join(out_dir,
+                                                  "observe_trace.json"))
+        with open(path) as f:
+            doc = json.load(f)
+        if set(doc.get("paddleTrace", {})) != {
+                "pid", "metadata", "clock_offsets", "compile_count"}:
+            raise AssertionError(f"export_trace: {sorted(doc)}")
+        log(f"  trace: {len(prompts)} requests each enqueue -> admit -> "
+            f"prefill -> first_token -> finish (mean gaps ms {gaps}); "
+            f"{steps} decode::step spans = decode_steps; no capture; "
+            f"decode_stats = stats(); {len(lines)} scrape lines; "
+            f"{len(events)} events exported to {path}")
+        res.update({"launches": launches, "decode_steps": steps,
+                    "request_gaps_ms": gaps, "warmup_captures": n_warm,
+                    "scrape_lines": len(lines),
+                    "tokens_per_s": tokens / wall})
+
+        # (b) the Profiler over replayed decode steps
+        (arrays,) = decode_args
+        res["profiler"] = _profiled_decode_steps(
+            lambda: real_run(arrays, srv._pools), norm, per_step, out_dir)
+        res["scope_in_capture"] = _hold_scope_in_capture()
+
+        # (c) the device API
+        start = pdev.Event(enable_timing=True)
+        end = pdev.Event(enable_timing=True)
+        ev_ms = []
+        for _ in range(5):
+            pdev.synchronize()
+            start.record()
+            real_run(arrays, srv._pools)
+            end.record()
+            end.synchronize()
+            ev_ms.append(start.elapsed_time(end))
+        prof_steps = res["profiler"]["steps"]
+        log(f"  device.Event: a replayed batch-8 decode step {ev_ms} ms; "
+            f"the Profiler's device span per step "
+            f"{[round(s['span_ms'], 4) for s in prof_steps]} ms, kernels "
+            f"busy {[round(s['busy_ms'], 4) for s in prof_steps]} ms "
+            f"[{card}]")
+        pdev.synchronize()
+        mine, theirs = pdev.memory_stats(), torch.cuda.memory_stats()
+        want = {"bytes_in_use": theirs["allocated_bytes.all.current"],
+                "peak_bytes_in_use": theirs["allocated_bytes.all.peak"],
+                "bytes_limit": torch.cuda.get_device_properties(
+                    0).total_memory,
+                "num_allocs": theirs["allocation.all.allocated"]}
+        if mine != want or pdev.cuda.max_memory_allocated() != \
+                torch.cuda.max_memory_allocated():
+            raise AssertionError(f"device.memory_stats {mine}, "
+                                 f"torch.cuda.memory_stats {want}")
+        res["device"] = {"event_ms": ev_ms, "memory_stats": mine}
+
+        # (e) the cost of tracing: a span's host cost, then bursts with
+        # the flight recorder off and on in turns, each with the garbage
+        # collections it ran
+        res["span_us"] = _span_cost_us()
+        log(f"  one trace_span + end(), one trace_event on this host (us): "
+            f"{res['span_us']}")
+        hist = srv._metrics._hists["decode_step_ms"]
+        res["tracing_cost"] = []
+        for turn, on in enumerate(TRACING_TURNS):
+            if on:
+                profiler.enable_tracing()
+            n0 = hist.count
+            gc0 = [g["collections"] for g in gc.get_stats()]
+            try:
+                outs, wall = _burst(srv, prompts)
+            finally:
+                profiler.disable_tracing()
+            gcs = [g["collections"] - c
+                   for g, c in zip(gc.get_stats(), gc0)]
+            if hist.count > len(hist._ring):
+                raise AssertionError("the decode_step_ms reservoir wrapped")
+            samples = hist._ring[n0:hist.count]
+            p50 = float(np.percentile(samples, 50))
+            tps = sum(len(o) for o in outs) / wall
+            res["tracing_cost"].append({
+                "tracing": on, "tokens_per_s": tps,
+                "decode_step_ms_p50": p50,
+                "decode_step_ms_mean": float(np.mean(samples)),
+                "gc_collections": gcs})
+            log(f"  tracing {'on ' if on else 'off'} turn {turn}: "
+                f"{tps:.1f} tokens/s, decode step p50 {p50:.3f} ms, mean "
+                f"{np.mean(samples):.3f} ms over {len(samples)} steps; gc "
+                f"collections by generation {gcs} [{card}]")
+    finally:
+        srv.shutdown()
+        srv._exec.__dict__.pop("run", None)
+    del srv, model
+    torch.cuda.empty_cache()
+    # (d) run_steps with tracing on
+    res["run_steps"] = _observe_run_steps(seed, device)
+    torch.cuda.empty_cache()
+    return res
+
+
+PHASES = ("kernels", "serve", "train", "bert", "llama", "trainloop",
+          "observe")
 TRAIN_STEPS = 20
 TRAIN_LR = 3e-4
 BERT_LR = 1e-4
@@ -3387,8 +3849,8 @@ def main(argv=None) -> int:
                     help="also profile decode steps and one train step")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of kernels,serve,train,bert"
-                         ",llama,trainloop (default: all); a subset is a "
-                         "development aid and ends with \"ok\": "
+                         ",llama,trainloop,observe (default: all); a subset "
+                         "is a development aid and ends with \"ok\": "
                          "\"partial\", not true")
     ap.add_argument("--optimizer-ab", action="store_true",
                     help="also time GPT-2's and BERT's train cells with "
@@ -3592,6 +4054,17 @@ def main(argv=None) -> int:
         log(f"  phase trainloop: {res['phase_seconds']:.1f} s")
         report["trainloop"] = res
         torch.cuda.empty_cache()
+
+    if "observe" in phases:
+        log(f"observe {OBSERVE_CELL}:")
+        t0 = time.perf_counter()
+        res = phase_observe(args.seed, card, args.out)
+        res["phase_seconds"] = time.perf_counter() - t0
+        log(f"  phase observe: {res['phase_seconds']:.1f} s")
+        report["observe"] = res
+        by_path[f"{OBSERVE_CELL}-traced"] = res["launches"]
+        by_path[f"{TRAINLOOP_RUN_CELL}-traced"] = \
+            res["run_steps"]["launches"]
 
     if args.optimizer_ab:
         log("optimizer A/B (use_fused_optimizer on, off, on, off):")

@@ -45,6 +45,10 @@ What a capture (``Graphs.capture``) keeps to:
   every replay (``ops.kernels.launch_counters``).
 - No fallback: a capture that fails raises ``CaptureError``; nothing
   runs the call eagerly on the card instead.
+- Every capture is a counted, traceable event, as the reference's
+  compiles are: ``profiler.record_compile`` and a ``jit::compile`` span
+  around it, so ``profiler.compile_count()`` is the process-wide "no new
+  capture in steady state" reading.
 
 ``save``, ``load`` and ``TranslatedLayer`` are not ported yet.
 """
@@ -58,6 +62,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..profiler import tracing
 
 __all__ = ["InputSpec", "StaticFunction", "Graphs", "CaptureError",
            "to_static", "not_to_static", "ignore_module", "set_code_level",
@@ -288,7 +293,10 @@ class Graphs:
                 register(g)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        with _capture_lock:
+        tracing.record_compile(self.name)
+        with _capture_lock, tracing.trace_span(
+                "jit::compile", cat="jit", fn=self.name,
+                arity=len(inputs)):
             _local.capturing = True
             try:
                 with torch.cuda.graph(graph, pool=self._pool,

@@ -48,6 +48,7 @@ from torch import nn
 
 from .. import jit, profiler
 from ..io.prefetch import DevicePrefetcher, PipelineMetrics
+from ..profiler import tracing
 
 __all__ = ["create_train_step", "create_multistep_train_step", "run_steps",
            "write_back"]
@@ -314,7 +315,11 @@ def run_steps(step, feed, *, lr=1e-3, log_every: int = 0,
     lagged loss as device_blocked_s (compute-bound). A
     ``DevicePrefetcher`` feed's own metrics take them (it counts its
     waits itself); any other feed gets a ``PipelineMetrics`` named
-    ``name`` (default ``"run_steps"``) for the run."""
+    ``name`` (default ``"run_steps"``) for the run.
+
+    With tracing on, each step records ``train::feed_wait`` (the wait for
+    its batch), ``train::dispatch`` and, for its lagged loss,
+    ``train::fetch`` in the flight recorder, each with ``step=i``."""
     lr_fn = lr if callable(lr) else (lambda i: lr)
     owns_metrics = not isinstance(feed, DevicePrefetcher)
     if owns_metrics:
@@ -326,7 +331,8 @@ def run_steps(step, feed, *, lr=1e-3, log_every: int = 0,
 
     def fetch(pending: _LaggedLoss, i: int):
         t0 = time.perf_counter()
-        got = pending.get()
+        with tracing.trace_span("train::fetch", cat="train", step=i):
+            got = pending.get()
         metrics.add_time("device_blocked_s", time.perf_counter() - t0)
         losses.append(got)
         if log_every and on_log is not None and i % log_every == 0:
@@ -338,14 +344,20 @@ def run_steps(step, feed, *, lr=1e-3, log_every: int = 0,
         it = iter(feed)
         while True:
             t0 = time.perf_counter()
+            # span handle, not a with-block: a StopIteration break drops
+            # it unrecorded instead of logging a wait for no batch
+            feed_span = tracing.trace_span("train::feed_wait", cat="train",
+                                           step=i)
             try:
                 ids, labels = next(it)
             except StopIteration:
                 break
+            feed_span.end()
             if owns_metrics:
                 metrics.add_time("host_blocked_s", time.perf_counter() - t0)
                 metrics.inc("batches_out")
-            lagged = _LaggedLoss(step(ids, labels, lr_fn(i)))
+            with tracing.trace_span("train::dispatch", cat="train", step=i):
+                lagged = _LaggedLoss(step(ids, labels, lr_fn(i)))
             if pending is not None:
                 fetch(pending, i - 1)
             pending = lagged

@@ -28,8 +28,16 @@ Execution model — one worker thread:
   grows sequences by one page at page boundaries, and evicts finished/
   expired sequences — host bookkeeping over fixed-shape device state.
 
-paddle_tpu's flight-recorder spans and events (``profiler.tracing``)
-and its profiler registry are left out until those modules are ported.
+Observability as in paddle_tpu: the server registers its metrics with
+``profiler.register_decode_source`` (``profiler.decode_stats()``), and a
+request's life is in the flight recorder (``profiler.tracing``) under
+its ``trace_id``: ``decode::enqueue`` (the client's thread),
+``decode::admit``, the ``decode::prefill`` span, ``decode::first_token``
+and ``decode::finish``, with ``decode::preempt``, ``decode::page_growth``
+and ``decode::cancel`` where they happen, and one ``decode::step`` span
+per decode step. The spans wrap a step's replay and its ``[B]`` token
+copy from outside: nothing is recorded inside a captured graph. A step
+signature's capture runs inside ``RecordEvent("decode::compile")``.
 """
 from __future__ import annotations
 
@@ -45,6 +53,8 @@ from torch import nn
 from ...core.random import DEFAULT_SEED, make_generator
 from ...device import resolve_device
 from ...jit import StaticFunction, signature
+from ...profiler import (RecordEvent, register_decode_source, tracing,
+                         unregister_decode_source)
 from ..batcher import (DeadlineExceeded, ServerClosed, ServerOverloaded,
                        ServingError)
 from ..bucketing import (BucketOverflow, next_bucket_strict, page_buckets,
@@ -122,7 +132,8 @@ class _StepExecutor:
         compiled = self._compiled.get(key)
         if compiled is not None:
             return compiled, False
-        compiled = self._compiled[key] = self._sf.compile_for(*specs)
+        with RecordEvent("decode::compile", "Serving"):
+            compiled = self._compiled[key] = self._sf.compile_for(*specs)
         self._metrics.inc("compile_count")
         return compiled, True
 
@@ -283,6 +294,7 @@ class DecodeServer(ServerLifecycleMixin):
         self._abort = False
         self._closed = False
         self._lock = threading.Lock()
+        register_decode_source(self.name, self._metrics)
         self._worker = threading.Thread(target=self._step_loop,
                                         name=self.name, daemon=True)
         self._worker.start()
@@ -290,11 +302,14 @@ class DecodeServer(ServerLifecycleMixin):
     # -- client API --------------------------------------------------------
     def submit(self, prompt, *, max_new_tokens: Optional[int] = None,
                eos_id: Optional[int] = None,
-               deadline_ms: Optional[float] = None) -> DecodeStream:
+               deadline_ms: Optional[float] = None,
+               trace_id: Optional[str] = None) -> DecodeStream:
         """Enqueue one generation request (``prompt``: 1-D token ids).
         Returns a DecodeStream; a full queue raises ServerOverloaded, a
         closed server ServerClosed, an over-budget prompt
-        BucketOverflow."""
+        BucketOverflow. ``trace_id`` tags the request's flight-recorder
+        events (default: the caller's ``TraceContext``, or a fresh id
+        when tracing is enabled)."""
         if self._is_closed():
             raise ServerClosed("server is shutting down")
         if isinstance(prompt, torch.Tensor):
@@ -315,9 +330,17 @@ class DecodeServer(ServerLifecycleMixin):
                 f"max_context {self.max_context}")
         deadline_s = (float(deadline_ms) / 1e3 if deadline_ms is not None
                       else self._default_deadline_s)
+        if trace_id is None:
+            trace_id = tracing.current_trace_id()
+            if trace_id is None and tracing.tracing_enabled():
+                trace_id = tracing.new_trace_id()
         req = DecodeRequest(
             arr, mnt, eos_id if eos_id is not None else self.default_eos_id,
-            None if deadline_s is None else time.monotonic() + deadline_s)
+            None if deadline_s is None else time.monotonic() + deadline_s,
+            trace_id=trace_id)
+        tracing.trace_event("decode::enqueue", cat="decode",
+                            trace_id=trace_id, server=self.name,
+                            prompt_len=int(arr.size))
         # a request whose page budget exceeds the whole pool can never
         # be admitted — fail it here (synchronously) rather than letting
         # it wedge the admission queue head (reads only immutable
@@ -373,7 +396,7 @@ class DecodeServer(ServerLifecycleMixin):
         return n
 
     def stats(self) -> dict:
-        """Metrics snapshot."""
+        """Metrics snapshot (also via ``profiler.decode_stats()``)."""
         return self._metrics.snapshot()
 
     @property
@@ -397,6 +420,8 @@ class DecodeServer(ServerLifecycleMixin):
             if stream.done():
                 return False
             if self._queue.expire_stream(stream):
+                tracing.trace_event("decode::cancel", cat="decode",
+                                    server=self.name, where="queued")
                 return True
             # slot entries flip atomically between None and a Slot (the
             # active_slots contract); forcing req.deadline from this
@@ -405,6 +430,9 @@ class DecodeServer(ServerLifecycleMixin):
             for slot in list(self._sched.slots):
                 if slot is not None and slot.req.stream is stream:
                     slot.req.deadline = time.monotonic() - 1.0
+                    tracing.trace_event("decode::cancel", cat="decode",
+                                        trace_id=slot.req.trace_id,
+                                        where="running")
                     return True
             time.sleep(0.002)
         return False
@@ -450,6 +478,7 @@ class DecodeServer(ServerLifecycleMixin):
                 r.stream._fail(
                     ServerClosed("server shut down before execution"))
                 self._metrics.inc("failed")
+        unregister_decode_source(self.name, self._metrics)
 
     # -- worker ------------------------------------------------------------
     def _step_loop(self):
@@ -512,6 +541,12 @@ class DecodeServer(ServerLifecycleMixin):
                 return
             try:
                 slot = self._sched.try_admit(req)
+                if slot is not None:
+                    tracing.trace_event(
+                        "decode::admit", cat="decode",
+                        trace_id=req.trace_id, slot=slot.index,
+                        queue_wait_ms=(time.monotonic() - req.t_submit)
+                        * 1e3)
             except (BucketOverflow, ServingError) as e:
                 # a preemption-grown prompt can outgrow the prefill
                 # buckets — settle it rather than wedging the queue head
@@ -534,6 +569,11 @@ class DecodeServer(ServerLifecycleMixin):
         eff = req.effective_prompt
         t0 = time.monotonic()
         self._metrics.observe("queue_wait_ms", (t0 - req.t_submit) * 1e3)
+        # span handle, closed just before the first-token emit (the
+        # _Span clock starts at construction; .end() records it)
+        span = tracing.trace_span("decode::prefill", cat="decode",
+                                  trace_id=req.trace_id,
+                                  prompt_len=len(eff))
         sb = next_bucket_strict(len(eff), self._prefill_buckets,
                                 "prompt length")
         tokens = np.zeros((1, sb), np.int32)
@@ -551,6 +591,7 @@ class DecodeServer(ServerLifecycleMixin):
         self._metrics.inc("prefills")
         self._metrics.observe("prefill_ms",
                               (time.monotonic() - t0) * 1e3)
+        span.end()
         self._emit(slot, nxt)
 
     def _decode_step(self):
@@ -562,10 +603,17 @@ class DecodeServer(ServerLifecycleMixin):
                 pages_before = len(slot.pages)
                 for req in self._sched.ensure_capacity(slot):
                     self._metrics.inc("preemptions")
+                    tracing.trace_event("decode::preempt", cat="decode",
+                                        trace_id=req.trace_id,
+                                        generated=req.generated)
                     self._queue.put(req, front=True)
                 grown = len(slot.pages) - pages_before
                 if grown > 0:
                     self._metrics.inc("page_growths", grown)
+                    tracing.trace_event("decode::page_growth",
+                                        cat="decode",
+                                        trace_id=slot.req.trace_id,
+                                        pages=grown)
             except PagesExhausted as e:
                 # pool cannot hold even this one sequence: fail it
                 self._sched.release(slot)
@@ -576,6 +624,8 @@ class DecodeServer(ServerLifecycleMixin):
         if not active:
             return
         t0 = time.monotonic()
+        step_span = tracing.trace_span("decode::step", cat="decode",
+                                       batch=len(active))
         bb, pb = self._sched.decode_shape()
         tokens = np.zeros((bb, 1), np.int32)
         positions = np.zeros((bb,), np.int32)
@@ -591,6 +641,7 @@ class DecodeServer(ServerLifecycleMixin):
         # ONE batched copy of [B] sampled ids per decode step (clients
         # stream them; the host scheduler needs them for eos/length)
         nxt = out[0].cpu().numpy()
+        step_span.end()
         alloc = self._sched.allocator
         self._metrics.inc("decode_steps")
         self._metrics.observe("decode_step_ms",
@@ -611,6 +662,9 @@ class DecodeServer(ServerLifecycleMixin):
         now = time.monotonic()
         if req.generated == 0:
             self._metrics.observe("ttft_ms", (now - req.t_submit) * 1e3)
+            tracing.trace_event("decode::first_token", cat="decode",
+                                trace_id=req.trace_id,
+                                ttft_ms=(now - req.t_submit) * 1e3)
         elif slot.t_last_emit is not None:
             self._metrics.observe("inter_token_ms",
                                   (now - slot.t_last_emit) * 1e3)
@@ -630,4 +684,7 @@ class DecodeServer(ServerLifecycleMixin):
             self._sched.release(slot)
             self._metrics.inc("completed")
             self._metrics.observe("tokens_per_request", req.generated)
+            tracing.trace_event("decode::finish", cat="decode",
+                                trace_id=req.trace_id, reason=reason,
+                                tokens=req.generated)
             req.stream._finish(reason)

@@ -1,6 +1,6 @@
 """Decode-server observability (counterpart of
 paddle_tpu/serving/decode/metrics.py; read through
-``DecodeServer.stats()`` until the profiler's registries are ported)."""
+``DecodeServer.stats()`` and ``profiler.decode_stats()``)."""
 from __future__ import annotations
 
 from ...profiler.metrics import MetricsBase

@@ -145,10 +145,11 @@ class DecodeRequest:
     anything."""
 
     __slots__ = ("prompt", "max_new_tokens", "eos_id", "deadline",
-                 "stream", "t_submit", "seq")
+                 "stream", "t_submit", "seq", "trace_id")
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int,
-                 eos_id: Optional[int], deadline: Optional[float]):
+                 eos_id: Optional[int], deadline: Optional[float],
+                 trace_id: Optional[str] = None):
         self.prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.eos_id = eos_id
@@ -156,6 +157,9 @@ class DecodeRequest:
         self.stream = DecodeStream()
         self.t_submit = time.monotonic()
         self.seq = next(_seq)
+        # request-scoped flight-recorder id (stamped by the caller, or
+        # minted by submit) — every lifecycle event carries it
+        self.trace_id = trace_id
 
     @property
     def generated(self) -> int:

@@ -1,6 +1,6 @@
 """Shared server lifecycle: drain / close / context manager / __del__
-(counterpart of paddle_tpu/serving/lifecycle.py, without its tracing
-span until profiler/tracing.py is ported).
+(counterpart of paddle_tpu/serving/lifecycle.py; ``drain`` records the
+``serving::drain`` span in the flight recorder).
 
 ``DecodeServer`` (and, once ported, ``Server`` and ``Router``) settle
 every accepted request into exactly one of completed / expired /
@@ -26,6 +26,8 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+from ..profiler import tracing
+
 __all__ = ["ServerLifecycleMixin"]
 
 
@@ -50,10 +52,13 @@ class ServerLifecycleMixin:
         if m is None:       # half-constructed host: nothing in flight
             return True
         end = None if timeout is None else time.monotonic() + timeout
-        while m["completed"] + m["expired"] + m["failed"] < m["submitted"]:
-            if end is not None and time.monotonic() > end:
-                return False
-            time.sleep(0.002)
+        with tracing.trace_span("serving::drain", cat="serving",
+                                host=getattr(self, "name", None)):
+            while (m["completed"] + m["expired"] + m["failed"]
+                   < m["submitted"]):
+                if end is not None and time.monotonic() > end:
+                    return False
+                time.sleep(0.002)
         return True
 
     def close(self):

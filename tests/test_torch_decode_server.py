@@ -2,7 +2,11 @@
 (paddle_tpu_torch/serving/decode) on the CPU.
 
 1. Against paddle_tpu: both servers get the same prompts and the same
-   weights (carried by name), greedy, and must give identical token ids.
+   weights (carried by name), greedy, and must give identical token ids;
+   with the flight recorder on and fixed trace ids, preempting, every
+   request's events and their attributes (times aside) are the
+   reference's, in order. The server registers its metrics with the
+   profiler (``decode_stats``) and unregisters at shutdown.
 2. The host bookkeeping cases of tests/test_serving_decode.py (buckets,
    page allocator, scheduler) and the lifecycle cases of
    tests/test_serving_decode_server.py (shedding, deadlines, drain,
@@ -89,6 +93,97 @@ def test_greedy_tokens_identical_to_paddle_tpu():
         st = srv.stats()
     assert got == ref
     assert st["completed"] == 4 and st["tokens_generated"] == 24
+
+
+# times: the only attributes that may differ between the two servers
+_TIMED_ATTRS = ("queue_wait_ms", "ttft_ms")
+
+
+def _traced_run(server_cls, model, prompts, tr, **kw):
+    """Serve ``prompts`` with tracing on and the ids ``r0``, ``r1``, ...;
+    returns the tokens, the stats and each request's events in order:
+    (name, attributes without the timed ones)."""
+    size = tr._ring_size        # another test may have left it small
+    tr.reset_tracing()
+    tr.enable_tracing(ring_size=tr.DEFAULT_RING_SIZE)
+    try:
+        with server_cls(model, name="traced", **kw) as srv:
+            # the worker waits at its first prefill until every request
+            # is queued, so both servers admit them in the same order
+            with srv._exec._lock:
+                streams = [srv.submit(p, max_new_tokens=6, trace_id=f"r{i}")
+                           for i, p in enumerate(prompts)]
+            toks = [[int(t) for t in s.result(timeout=120)] for s in streams]
+            stats = srv.stats()
+        events = tr.snapshot_events()
+    finally:
+        tr.disable_tracing()
+        tr._ring_size = size
+    per = {}
+    for e in events:
+        args = dict(e.get("args", {}))
+        rid = args.pop("trace_id", None)
+        if rid is not None:
+            per.setdefault(rid, []).append(
+                (e["name"], {k: (v if k not in _TIMED_ATTRS else "t")
+                             for k, v in args.items()}))
+    return toks, stats, per, events
+
+
+def test_trace_events_per_request_match_paddle_tpu():
+    """The tiny Llama behind both servers, preempting (admission
+    "prefill" on 8 usable pages): every request's flight-recorder events
+    and their attributes are the reference's, in the same order."""
+    from paddle_tpu.profiler import tracing as rtr
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.profiler import tracing as ptr
+    paddle.seed(0)
+    cfg = jax_llama_tiny()
+    cfg.hidden_size = 128
+    jm = JaxLlama(cfg)
+    jm.eval()
+    tcfg = llama_tiny()
+    tcfg.hidden_size = 128
+    tm = LlamaForCausalLM(tcfg, device="cpu")
+    state_dict_from_numpy(tm, {k: v.numpy()
+                               for k, v in jm.state_dict().items()})
+    rng = np.random.RandomState(0)
+    prompts = [_prompt(rng, n) for n in (5, 9, 12, 3)]
+    kw = dict(max_slots=2, page_len=4, max_context=32, prefill_buckets=[16],
+              admission="prefill", num_pages=9)
+    ref = _traced_run(jdecode.DecodeServer, jm, prompts, rtr, **kw)
+    got = _traced_run(decode.DecodeServer, tm, prompts, ptr, device="cpu",
+                      **kw)
+    try:
+        assert got[0] == ref[0]
+        assert got[2] == ref[2]
+        names = [n for n, _ in got[2]["r3"]]
+        assert names[:4] == ["decode::enqueue", "decode::admit",
+                             "decode::prefill", "decode::first_token"]
+        assert names[-1] == "decode::finish"
+        assert "decode::preempt" in names
+        assert any("decode::page_growth" in [n for n, _ in seq]
+                   for seq in got[2].values())
+        stats, events = got[1], got[3]
+        steps = [e for e in events if e["name"] == "decode::step"]
+        assert len(steps) == stats["decode_steps"] > 0
+        assert [e["args"]["host"] for e in events
+                if e["name"] == "serving::drain"] == ["traced"]
+        assert "traced" not in profiler.decode_stats()
+    finally:
+        ptr.reset_tracing()
+        rtr.reset_tracing()
+
+
+def test_server_registers_its_metrics_with_the_profiler(model):
+    from paddle_tpu_torch import profiler
+    with _server(model, name="registered") as srv:
+        srv.generate(_prompt(np.random.RandomState(1), 4),
+                     max_new_tokens=2, timeout=60)
+        assert profiler.decode_stats("registered") == srv.stats()
+        assert "registered" in profiler.export_stats()["decode"]
+    with pytest.raises(KeyError):
+        profiler.decode_stats("registered")
 
 
 # -- 2a. buckets, allocator, scheduler (tests/test_serving_decode.py) --------

@@ -26,7 +26,11 @@ CPU.
    loss that no later replay overwrites; all owners capture on one
    stream; dropping a StaticFunction, its
    executables or a train step frees the model without the cyclic
-   garbage collector (its graphs hold no cycle back to their owner).
+   garbage collector (its graphs hold no cycle back to their owner);
+   every capture counts once in the flight recorder's
+   ``compile_count()`` with a ``jit::compile`` event and span, and a
+   ``RecordEvent`` inside a call captured under a Profiler leaves the
+   capture working.
 """
 import contextlib
 import dataclasses
@@ -602,3 +606,58 @@ def test_dropping_the_owners_frees_the_models(fake_card):
         assert [r() for r in refs] == [None, None]
     finally:
         gc.enable()
+
+
+def test_every_capture_is_recorded_as_a_compile(fake_card):
+    """Each capture, a re-capture after a rebinding included, bumps the
+    flight recorder's compile count once and records a ``jit::compile``
+    event and span; replays record nothing."""
+    from paddle_tpu_torch.profiler import tracing
+    tracing.reset_tracing()
+    tracing.enable_tracing()
+    try:
+        _, port = _nets()
+        sf = jit.to_static(port)
+        with torch.no_grad():
+            for x in (torch.ones(1, 8), torch.zeros(1, 8), torch.ones(2, 8)):
+                sf(x)
+            assert tracing.compile_count() == sf.compile_count == 2
+            write_back(port, {"2.bias": torch.full((4,), 3.0)})
+            sf(torch.ones(1, 8))
+            sf(torch.ones(1, 8))
+        assert tracing.compile_count() == sf.compile_count == 3
+        events = [e for e in tracing.snapshot_events()
+                  if e["name"] == "jit::compile"]
+        assert sorted(e["ph"] for e in events) == ["X"] * 3 + ["i"] * 3
+        assert {e["args"]["fn"] for e in events} == {"Sequential"}
+        assert [e["args"]["arity"] for e in events if e["ph"] == "X"] == \
+            [1, 1, 1]
+    finally:
+        tracing.reset_tracing()
+        tracing.disable_tracing()
+
+
+def test_a_record_event_inside_a_capture_stays_on_the_host(fake_card):
+    """A RecordEvent entered inside a captured call while a Profiler
+    records (a ``record_function``) does not break the capture, and the
+    replays compute what the call computes. The fake graph records every
+    op the capture dispatched, the profiler's host-side scope ops among
+    them; its tensor ops are the call's alone. (A CUDA graph holds device
+    work only; ``chip_smoke.py`` phase ``observe`` profiles such a replay
+    on the card.)"""
+    from paddle_tpu_torch import profiler
+
+    def f(x):
+        with profiler.RecordEvent("inside"):
+            return x * 2 + 1
+
+    sf = jit.StaticFunction(f)
+    with profiler.Profiler() as p, torch.no_grad():
+        sf(torch.ones(3))
+        y = sf(torch.full((3,), 2.0))
+    assert torch.equal(y, torch.full((3,), 5.0))
+    (g,) = fake_card.made
+    assert g.replays == 2
+    assert [str(op) for op, *_ in g.ops if str(op).startswith("aten.")] \
+        == ["aten.mul.Tensor", "aten.add.Tensor"]
+    assert "inside" in {e.name for e in p.events}
